@@ -1,0 +1,130 @@
+"""The PyTorch port's separable blur (ops/conv, ops/filters,
+ops/blur_cuda) and binning (ops/resample) against the JAX package.
+
+One seeded numpy input goes through both packages.  The JAX blur kernel
+runs in interpret mode (as the JAX package's tests run it on a CPU);
+here the port takes the kernel's plain twin, and the CUDA kernel is
+held against that twin on a card.  Tolerance: rtol 1e-5, atol 1e-6 of
+the largest magnitude (float32 sums of up to 3 x 61 taps taken in
+another order).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from visfd_tpu.ops import conv as jconv
+from visfd_tpu.ops import filters as jfilters
+from visfd_tpu.ops import resample as jresample
+from visfd_tpu.ops.blur_pallas import blur3_pallas
+from visfd_tpu_torch.convert import to_numpy, to_torch
+from visfd_tpu_torch.ops import conv, filters, resample
+from visfd_tpu_torch.ops.blur_cuda import blur3, blur3_plain
+
+SHAPE = (12, 20, 33)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py runs this on one)")
+    return torch.device("cuda")
+
+
+def _close(got, want):
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=1e-5,
+                               atol=1e-6 * np.abs(want).max())
+
+
+def _inputs(seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=SHAPE).astype(np.float32)
+    mask = (rng.uniform(size=SHAPE) > 0.3).astype(np.float32)
+    return x, mask
+
+
+# an asymmetric kernel set: a flipped (correlation instead of
+# convolution) blur would pass every check with a Gaussian
+ASYM = (np.array([0.1, 0.5, 0.25, 0.1, 0.05], np.float32),
+        np.array([0.6, 0.3, 0.1], np.float32),
+        np.array([0.05, 0.1, 0.15, 0.2, 0.3, 0.15, 0.05], np.float32))
+
+
+def _gauss(sigma, hw):
+    from visfd_tpu_torch.ops import kernels as K
+    return tuple(K.gauss_kernel_1d(sigma, hw) for _ in range(3))
+
+
+@pytest.mark.parametrize("kernels", ["asym", "gauss"])
+def test_blur3_twin_matches_jax_kernel(kernels):
+    x, _ = _inputs()
+    ks = ASYM if kernels == "asym" else _gauss(1.7, 4)
+    want = blur3_pallas(jnp.asarray(x), ks, interpret=True)
+    got = blur3(to_torch(x), ks)
+    _close(to_numpy(got), want)
+
+
+@pytest.mark.parametrize("form", ["nomask", "masked", "raw", "raw_masked"])
+@pytest.mark.parametrize("kernels", ["asym", "gauss"])
+def test_separable_conv3d_matches_jax(form, kernels):
+    x, mask = _inputs(1)
+    ks = ASYM if kernels == "asym" else _gauss(2.2, 5)
+    use_mask = form in ("masked", "raw_masked")
+    normalize = form in ("nomask", "masked")
+    want = jconv.separable_conv3d(
+        jnp.asarray(x), ks, mask=jnp.asarray(mask) if use_mask else None,
+        normalize=normalize)
+    got = conv.separable_conv3d(
+        to_torch(x), ks, mask=to_torch(mask) if use_mask else None,
+        normalize=normalize)
+    _close(to_numpy(got), want)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_apply_gauss_matches_jax(masked):
+    x, mask = _inputs(2)
+    kw = dict(truncate_halfwidth=(3, 4, 2))
+    want = jfilters.apply_gauss(
+        jnp.asarray(x), (1.2, 1.6, 0.9),
+        mask=jnp.asarray(mask) if masked else None, **kw)
+    got = filters.apply_gauss(
+        to_torch(x), (1.2, 1.6, 0.9),
+        mask=to_torch(mask) if masked else None, **kw)
+    _close(to_numpy(got), want)
+
+
+def test_bin_unbin_match_jax():
+    x, _ = _inputs(3)
+    dest = (6, 10, 16)
+    want = jresample.bin_array3d(jnp.asarray(x), dest)
+    got = resample.bin_array3d(to_torch(x), dest)
+    _close(to_numpy(got), want)
+    want_u = jresample.unbin_array3d(want, SHAPE)
+    got_u = resample.unbin_array3d(got, SHAPE)
+    assert got_u.shape == SHAPE
+    _close(to_numpy(got_u), want_u)
+
+
+@pytest.mark.parametrize("hw", [4, 5])
+def test_blur3_cuda_kernel_matches_twin(cuda, hw):
+    x, mask = _inputs(4)
+    ks = ASYM if hw == 4 else _gauss(2.0, hw)
+    xc = to_torch(x, cuda)
+    got = blur3(xc, ks)
+    torch.cuda.synchronize()
+    want = blur3_plain(xc, [to_torch(k, cuda) for k in ks])
+    _close(to_numpy(got), to_numpy(want))
+    got_m = conv.separable_conv3d(xc, ks, mask=to_torch(mask, cuda))
+    want_m = conv.separable_conv3d(to_torch(x), ks, mask=to_torch(mask))
+    _close(to_numpy(got_m), to_numpy(want_m))

@@ -1,0 +1,107 @@
+"""Gaussian-scale gradient/Hessian fields and ridge saliency scores.
+
+Port of ``visfd_tpu/features/hessian.py`` (``CalcHessian``,
+``feature.hpp:1203-1348``: Gaussian blur then central finite
+differences, scaled by sigma / sigma^2; FD stencils from
+``visfd_utils.hpp:528-682``, edge voxels taking the stencil of the
+nearest interior voxel; scores ``feature.hpp:1526-1612``).  Plain
+tensor math; these are the parts the eigen kernel's twin is made of.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from visfd_tpu_torch.ops import filters as F
+
+
+def _edge_clamp(result: torch.Tensor) -> torch.Tensor:
+    """Replicate the value at the nearest interior voxel onto the faces
+    of the leading (Z, Y, X) axes (``visfd_utils.hpp:592-610``)."""
+    for axis in range(3):
+        n = result.shape[axis]
+        idx = torch.arange(n, device=result.device).clamp(1, n - 2)
+        result = result.index_select(axis, idx)
+    return result
+
+
+def _sh(x: torch.Tensor, dz: int, dy: int, dx: int) -> torch.Tensor:
+    """x shifted so out[p] = x[p + (dz,dy,dx)], wrapping (the wrapped
+    values never survive: _edge_clamp replaces the faces)."""
+    return torch.roll(x, shifts=(-dz, -dy, -dx), dims=(0, 1, 2))
+
+
+def gradient_fd(smoothed: torch.Tensor) -> torch.Tensor:
+    """Central-difference gradient, (Z, Y, X, 3) in (x, y, z) order."""
+    gx = 0.5 * (_sh(smoothed, 0, 0, 1) - _sh(smoothed, 0, 0, -1))
+    gy = 0.5 * (_sh(smoothed, 0, 1, 0) - _sh(smoothed, 0, -1, 0))
+    gz = 0.5 * (_sh(smoothed, 1, 0, 0) - _sh(smoothed, -1, 0, 0))
+    return _edge_clamp(torch.stack([gx, gy, gz], dim=-1))
+
+
+def hessian_fd(smoothed: torch.Tensor) -> torch.Tensor:
+    """3x3 central-difference Hessian flattened to (Z, Y, X, 6)
+    [xx, yy, zz, xy, yz, xz]."""
+    c = smoothed
+    hxx = _sh(c, 0, 0, 1) + _sh(c, 0, 0, -1) - 2 * c
+    hyy = _sh(c, 0, 1, 0) + _sh(c, 0, -1, 0) - 2 * c
+    hzz = _sh(c, 1, 0, 0) + _sh(c, -1, 0, 0) - 2 * c
+    hxy = 0.25 * (_sh(c, 0, 1, 1) + _sh(c, 0, -1, -1)
+                  - _sh(c, 0, -1, 1) - _sh(c, 0, 1, -1))
+    hyz = 0.25 * (_sh(c, 1, 1, 0) + _sh(c, -1, -1, 0)
+                  - _sh(c, -1, 1, 0) - _sh(c, 1, -1, 0))
+    hxz = 0.25 * (_sh(c, 1, 0, 1) + _sh(c, -1, 0, -1)
+                  - _sh(c, 1, 0, -1) - _sh(c, -1, 0, 1))
+    return _edge_clamp(torch.stack([hxx, hyy, hzz, hxy, hyz, hxz], dim=-1))
+
+
+def calc_hessian(
+    x: torch.Tensor,
+    sigma: float,
+    mask: Optional[torch.Tensor] = None,
+    truncate_ratio: float = 2.5,
+    want_gradient: bool = True,
+) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """Blur at scale sigma, then (gradient*sigma, hessian*sigma^2) as
+    (Z,Y,X,3) / (Z,Y,X,6) fields, zero where mask == 0."""
+    hw = max(1, int(np.floor(sigma * truncate_ratio)))
+    smoothed = F.apply_gauss(x, sigma, mask=mask,
+                             truncate_halfwidth=(hw,) * 3)
+    keep = None if mask is None else (mask != 0)[..., None]
+    grad = None
+    if want_gradient:
+        grad = gradient_fd(smoothed) * sigma
+        if keep is not None:
+            grad = grad * keep
+    hess = hessian_fd(smoothed) * (sigma * sigma)
+    if keep is not None:
+        hess = hess * keep
+    return grad, hess
+
+
+def score_hessian_planar(eivals: torch.Tensor) -> torch.Tensor:
+    """Ridge "surfaceness" (lambda1^2 - lambda2^2)^2
+    (``feature.hpp:1526-1568``)."""
+    l1, l2 = eivals[..., 0], eivals[..., 1]
+    n = l1 * l1 - l2 * l2
+    return n * n
+
+
+def score_hessian_linear(eivals: torch.Tensor) -> torch.Tensor:
+    """Curve-ness lambda1*lambda2 - lambda3^2 (``feature.hpp:1573-1589``)."""
+    l1, l2, l3 = eivals[..., 0], eivals[..., 1], eivals[..., 2]
+    return l1 * l2 - l3 * l3
+
+
+def score_tensor_planar(eivals: torch.Tensor) -> torch.Tensor:
+    """Stick saliency lambda1 - lambda2 of a vote tensor
+    (``feature.hpp:1592-1601``)."""
+    return eivals[..., 0] - eivals[..., 1]
+
+
+def score_tensor_linear(eivals: torch.Tensor) -> torch.Tensor:
+    """Curve saliency of a vote tensor (``feature.hpp:1604-1612``)."""
+    return score_hessian_linear(eivals)

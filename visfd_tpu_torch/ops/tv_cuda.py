@@ -1,0 +1,236 @@
+"""Dense stick tensor voting: the CUDA kernel (``csrc/tv.cu``), its
+plain PyTorch twin, and the wrapper that picks one by the tensor's
+device.
+
+Port of ``visfd_tpu/ops/tv_pallas.py`` (``tv_dense_stick_pallas``) and
+of the accumulation core of ``visfd_tpu/features/tv.py``
+(``tv_tables``, ``tv_accumulate_padded``), which is the kernel's twin.
+Parity with ``class TV3D`` (``feature.hpp:1624-2483``): each receiver
+gathers ``sal(s) * w(j) * mask(s) * angle^(p/2) * outer(n_rot, n_rot)``
+from the sources s = i - j of the corner-truncated window of halfwidth
+floor(sigma * ratio), where sin = n(s).rhat, angle = cos^2 for surfaces
+and sin^2 for curves, and n_rot = 2 sin rhat - n (negated for curves).
+The weights w come from the ``gen_gauss_kernel_3d`` table.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from visfd_tpu_torch import _cuda_build as cb
+from visfd_tpu_torch.ops import kernels as K
+
+# the kernel stages 5 haloed (8 + 2hw) x (32 + 2hw) float tiles in the
+# 227 KB of shared memory a block may use on Hopper
+MAX_KERNEL_HALFWIDTH = 43
+
+
+def tv_tables(sigma: float, truncate_ratio: float = 2.5):
+    """(radial weights (K,), unit displacements (K, 3) in (x, y, z),
+    halfwidth), numpy float32, the K taps in (jz, jy, jx) raster order."""
+    hw = int(np.floor(sigma * truncate_ratio))
+    ker = K.gen_gauss_kernel_3d((sigma,) * 3, 2.0, (hw,) * 3)  # (Z, Y, X)
+    jz, jy, jx = np.meshgrid(*([np.arange(-hw, hw + 1)] * 3), indexing="ij")
+    offs = np.stack([jz.ravel(), jy.ravel(), jx.ravel()], axis=-1)
+    w = ker.ravel().astype(np.float32)
+    length = np.sqrt((offs ** 2).sum(axis=-1)).astype(np.float32)
+    length[length == 0] = 1.0
+    rhat = np.stack([offs[:, 2], offs[:, 1], offs[:, 0]],
+                    axis=-1).astype(np.float32) / length[:, None]
+    return w, rhat, hw
+
+
+def tv_accumulate_padded(
+    sal_pad, n_pad, m_pad, out_shape,
+    w_table, rhat_table,
+    exponent: int, detect_curves: bool, hw: int,
+    want_denominator: bool,
+):
+    """The kernel's twin: vote accumulation over fields padded by hw on
+    every face (sal_pad, m_pad (Z+2hw, Y+2hw, X+2hw); n_pad channel-last
+    (..., 3)), the taps in the tables' raster order.  Returns (dest (Z,
+    Y, X, 6), den (Z, Y, X))."""
+    nz, ny, nx = out_shape
+    w_len = 2 * hw + 1
+    dev = sal_pad.device
+    w_tz = torch.as_tensor(np.asarray(w_table), device=dev).reshape(
+        w_len, w_len, w_len)
+    rh_tz = torch.as_tensor(np.asarray(rhat_table), device=dev).reshape(
+        w_len, w_len, w_len, 3)
+    dest = torch.zeros((nz, ny, nx, 6), dtype=torch.float32, device=dev)
+    den = torch.zeros((nz, ny, nx), dtype=torch.float32, device=dev)
+    for tz in range(w_len):
+        z0 = 2 * hw - tz  # = hw - jz
+        acc = [torch.zeros((nz, ny, nx), dtype=torch.float32, device=dev)
+               for _ in range(7)]
+        for ty in range(w_len):
+            for tx in range(w_len):
+                y0 = 2 * hw - ty
+                x0 = 2 * hw - tx
+                sl = (slice(z0, z0 + nz), slice(y0, y0 + ny),
+                      slice(x0, x0 + nx))
+                sal = sal_pad[sl]
+                m = m_pad[sl]
+                n = n_pad[sl]
+                w = w_tz[tz, ty, tx]
+                rh = rh_tz[tz, ty, tx]
+
+                filter_val = w * m
+                active = (sal != 0.0) & (filter_val != 0.0)
+                weight = torch.where(active, sal * filter_val, 0.0)
+
+                sin_t = n[..., 0] * rh[0] + n[..., 1] * rh[1] + \
+                    n[..., 2] * rh[2]
+                sin2 = sin_t * sin_t
+                ang2 = sin2 if detect_curves else 1.0 - sin2
+                if exponent == 2:
+                    decay_ang = ang2
+                elif exponent == 4:
+                    decay_ang = ang2 * ang2
+                elif exponent % 2 == 0:
+                    decay_ang = ang2 ** (exponent // 2)
+                else:
+                    decay_ang = torch.abs(ang2) ** (0.5 * exponent)
+                sinx2 = 2.0 * sin_t
+                if detect_curves:
+                    nr = n - sinx2[..., None] * rh
+                else:
+                    nr = sinx2[..., None] * rh - n
+
+                amp = weight * decay_ang
+                acc[0] += amp * nr[..., 0] * nr[..., 0]
+                acc[1] += amp * nr[..., 1] * nr[..., 1]
+                acc[2] += amp * nr[..., 2] * nr[..., 2]
+                acc[3] += amp * nr[..., 0] * nr[..., 1]
+                acc[4] += amp * nr[..., 1] * nr[..., 2]
+                acc[5] += amp * nr[..., 0] * nr[..., 2]
+                if want_denominator:
+                    acc[6] += torch.where(active, filter_val, 0.0)
+        dest = dest + torch.stack(acc[:6], dim=-1)
+        if want_denominator:
+            den = den + acc[6]
+    return dest, den
+
+
+def _split_nvec(nvec, sal_shape, channel_major: Optional[bool]):
+    """The direction field as one channel-major (3, Z, Y, X) tensor.
+    Layout is (Z, Y, X, 3) or (3, Z, Y, X); ``None`` decides by shape
+    but refuses the one ambiguous case, a 3x3x3 volume."""
+    sal_shape = tuple(sal_shape)
+    cm_ok = (nvec.ndim == 4 and nvec.shape[0] == 3
+             and tuple(nvec.shape[1:]) == sal_shape)
+    cl_ok = (nvec.ndim == 4 and nvec.shape[-1] == 3
+             and tuple(nvec.shape[:-1]) == sal_shape)
+    if channel_major is None:
+        if cm_ok and cl_ok:
+            raise ValueError("nvec layout is ambiguous for this shape; pass "
+                             "nvec_channel_major explicitly")
+        channel_major = cm_ok
+    if channel_major:
+        if not cm_ok:
+            raise ValueError(f"expected channel-major (3,)+{sal_shape} nvec, "
+                             f"got {tuple(nvec.shape)}")
+        return nvec
+    if not cl_ok:
+        raise ValueError(f"expected {sal_shape}+(3,) nvec, got "
+                         f"{tuple(nvec.shape)}")
+    return torch.movedim(nvec, -1, 0)
+
+
+def _tv_votes_plain(sal, nv_cm, mask, sigma, exponent, detect_curves,
+                    truncate_ratio, want_denominator):
+    """The twin: raw (6|7, Z, Y, X) channel-major vote accumulator."""
+    w, rhat, hw = tv_tables(sigma, truncate_ratio)
+    pad = (hw,) * 6
+    sal_pad = torch.nn.functional.pad(sal, pad)
+    m = torch.ones_like(sal) if mask is None else mask
+    m_pad = torch.nn.functional.pad(m, pad)
+    n_pad = torch.nn.functional.pad(nv_cm, pad).movedim(0, -1)
+    dest, den = tv_accumulate_padded(
+        sal_pad, n_pad, m_pad, sal.shape, w, rhat, exponent,
+        detect_curves, hw, want_denominator)
+    chans = list(dest.unbind(-1)) + ([den] if want_denominator else [])
+    return torch.stack(chans)
+
+
+def tv_votes(
+    saliency: torch.Tensor,       # (Z, Y, X) float32
+    nvec: torch.Tensor,           # (Z, Y, X, 3) or (3, Z, Y, X)
+    sigma: float,
+    exponent: int = 4,
+    mask_src: Optional[torch.Tensor] = None,
+    detect_curves: bool = False,
+    truncate_ratio: float = 2.5,
+    want_denominator: bool = False,
+    sparse: bool = False,
+    channel_major: bool = False,
+    nvec_channel_major: Optional[bool] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Raw (unnormalised) vote tensors (Z, Y, X, 6), or channel-major
+    (6, Z, Y, X) with ``channel_major=True``, and the masked
+    normalisation denominator (Z, Y, X) when ``want_denominator``.
+
+    A CPU tensor takes the plain twin; a CUDA tensor launches
+    ``csrc/tv.cu``.  ``sparse`` skips, per block of receivers, the
+    source planes whose saliency is all zero; it equals the dense mode
+    bit for bit (the twin has no sparse mode: it would add the same
+    zeros)."""
+    exponent = int(exponent)
+    nv = _split_nvec(nvec, saliency.shape, nvec_channel_major)
+    if saliency.device.type == "cpu":
+        sal = saliency.to(torch.float32)
+        m = None if mask_src is None else mask_src.to(torch.float32)
+        out = _tv_votes_plain(sal, nv.to(torch.float32), m, sigma, exponent,
+                              bool(detect_curves), truncate_ratio,
+                              bool(want_denominator))
+    else:
+        out = _tv_votes_cuda(saliency, nv, mask_src, sigma, exponent,
+                             bool(detect_curves), truncate_ratio,
+                             bool(want_denominator), bool(sparse))
+    den = out[6] if want_denominator else None
+    vote = out[:6] if channel_major else torch.movedim(out[:6], 0, -1)
+    return vote, den
+
+
+def _tv_votes_cuda(saliency, nv_cm, mask_src, sigma, exponent,
+                   detect_curves, truncate_ratio, want_denominator, sparse):
+    if (saliency.device.type != "cuda" or saliency.ndim != 3
+            or nv_cm.device != saliency.device):
+        raise ValueError(f"tv_votes takes (Z, Y, X) CPU or CUDA tensors, "
+                         f"got {tuple(saliency.shape)} on "
+                         f"{saliency.device}, nvec on {nv_cm.device}")
+    w, rhat, hw = tv_tables(sigma, truncate_ratio)
+    if hw > MAX_KERNEL_HALFWIDTH:
+        raise ValueError(f"tv_votes: window halfwidth {hw} exceeds the "
+                         f"kernel's {MAX_KERNEL_HALFWIDTH}")
+    dev = saliency.device
+    sal = saliency.to(torch.float32)
+    md = None
+    if mask_src is not None:
+        md = mask_src.to(device=dev, dtype=torch.float32).contiguous()
+        sal = sal * md  # the vote weight factorises (feature.hpp:2262)
+    sal = sal.contiguous()
+    if want_denominator and md is None:
+        md = torch.ones_like(sal)
+    nv_cm = nv_cm.to(torch.float32).contiguous()
+    taps = torch.as_tensor(np.concatenate([w[:, None], rhat], axis=1),
+                           device=dev).contiguous()
+    nz, ny, nx = sal.shape
+    out = torch.empty((7 if want_denominator else 6, nz, ny, nx),
+                      dtype=torch.float32, device=dev)
+    if sal.numel():
+        with torch.cuda.device(dev):
+            cb.check(cb.library().visfd_tv_votes(
+                sal.data_ptr(), nv_cm.data_ptr(),
+                md.data_ptr() if want_denominator else None,
+                taps.data_ptr(), out.data_ptr(), nz, ny, nx, hw, exponent,
+                int(detect_curves), int(want_denominator), int(sparse),
+                cb.stream_of(sal)), "visfd_tv_votes")
+        tv_votes.launches += 1
+    return out
+
+
+tv_votes.launches = 0
