@@ -19,13 +19,30 @@ Phases:
    kernel call of the run and holds its result against the twin on the
    same inputs; then a smaller input that takes the auto-binning path;
 4. runs the CLI on an 112 x 96 x 80 phantom on the card and on the CPU
-   (dense voting, ``-tv-best 1.0``) and compares the two outputs.
+   (dense voting, ``-tv-best 1.0``) and compares the two outputs;
+5. the ``-mesh`` path on a (2, 2) mesh (all four blocks on ``cuda:0``
+   when one card is visible, spread over the cards otherwise):
+   (5a) the per-shard modes of the Hessian and voting kernels against
+   their plain twins on one block of 5c's shape with its halos, timed
+   beside the single-device kernels on as many voxels, then the sharded
+   wrappers on small volumes whose blocks are 1, 2 and 3 voxels thick
+   under halos deeper than a block; (5b) every sharded stage (blur,
+   Hessian, the ``-tv-best`` threshold, sparse and dense voting, vote
+   score) against its single-device counterpart at (Z, Y, X) = (512,
+   1024, 1024), counting the voxels whose bits differ (0 expected), and
+   the halo copies timed on their own; (5c) ``filter_mrc -membrane …
+   -tv … -mesh 4`` and the same command without ``-mesh`` on a seeded
+   1024 x 1024 x 512 phantom: identical outputs, each per-shard kernel
+   launched once per block, both walls and the peak device memory.
 
 A failed check is reported where it happens and the later phases still
 run; the script then exits non-zero without a result line.  On success
-the second-to-last line is a JSON summary of the kernels and the last
-line ``{"ok": true, "device": {...}}``.  TF32 is turned off for cuDNN
-and matmuls (the twins use neither; this keeps it so).
+the second-to-last line is a JSON summary of the kernels (each with its
+time, its plain twin's, the least time the card could take for the same
+work and, where one PyTorch call computes the same function, that
+call's time) and the last line ``{"ok": true, "device": {...}}``.  TF32
+is turned off for cuDNN and matmuls (the twins use neither; the
+library yardsticks are timed in float32).
 """
 
 from __future__ import annotations
@@ -43,8 +60,10 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 1234
 MAIN_SHAPE = (256, 512, 512)  # (Z, Y, X) of the main-path run
+MESH_SHAPE = (512, 1024, 1024)  # (Z, Y, X) of the -mesh run, phase 5
+MESH_DEVICES = 4                # a (2, 2) mesh
 
-# what each kernel replaces: (name, CUDA source, TPU kernel body)
+# what each kernel replaces: (name, CUDA source, TPU kernel)
 KERNELS = {
     "blur3": ("visfd_tpu_torch/csrc/blur.cu",
               "visfd_tpu/ops/blur_pallas.py:51"),
@@ -54,7 +73,48 @@ KERNELS = {
                  "visfd_tpu/ops/tv_pallas.py:80"),
     "sym3_score": ("visfd_tpu_torch/csrc/eigen.cu",
                    "visfd_tpu/ops/eigen_pallas.py:418"),
+    "hessian_principal_prepadded": ("visfd_tpu_torch/csrc/eigen.cu",
+                                    "visfd_tpu/ops/eigen_pallas.py:352"),
+    "tv_votes_prepadded": ("visfd_tpu_torch/csrc/tv.cu",
+                           "visfd_tpu/ops/tv_pallas.py:423"),
 }
+
+# The least time the card could take for a kernel's work: the larger of
+# its bytes (each input read once, each output written once) over the
+# memory rate and its float32 operations over the peak rate (the H100
+# SXM's published 3.35 TB/s and 67 TFLOP/s outside the tensor cores, at
+# 700 W).  Operations per voxel, counted from csrc/ (a product, a sum, a
+# division, a square root, a comparison or a transcendental each count
+# one; an FMA two):
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+BLUR_OPS_PER_TAP = 2            # one FMA per tap per axis
+HESSIAN_OPS = 25 + 90 + 43      # FD stencil, eigenvalues, eigenvector
+SYM3_OPS = 90                   # eigenvalues
+SCORE_OPS = {"planar": 4, "linear": 3, "stick": 1, "vals": 0}
+TV_OPS_PER_TAP = 33             # per non-zero source and tap (e = 4)
+TV_DEN_OPS_PER_TAP = 2
+
+
+def bound_ms(nbytes, nops):
+    """(ms, "bytes" | "operations"): the least time for the work."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tv_work(sal, n_out_vox, n_field_vox, hw, ratio, sigma, want_den):
+    """(bytes, operations) of a voting call: the fields read once, the
+    6|7 channels written once, and the taps of every non-zero source
+    (the sum a receiver needs; the sparse kernel skips the rest)."""
+    from visfd_tpu_torch.ops.tv_cuda import tv_tables
+    w, _, _ = tv_tables(sigma, ratio)
+    taps = int((w != 0).sum())
+    nnz = int((sal != 0).sum())
+    per_tap = TV_OPS_PER_TAP + (TV_DEN_OPS_PER_TAP if want_den else 0)
+    nbytes = 4 * n_field_vox * (5 if want_den else 4) \
+        + 4 * n_out_vox * (7 if want_den else 6)
+    return nbytes, nnz * taps * per_tap
 
 
 class Checks:
@@ -215,12 +275,15 @@ def phase_kernels(chk, card, shape=MAIN_SHAPE, dev="cuda"):
     dev = torch.device(dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     stats = {}
+    nvox = int(np.prod(shape))
 
-    def record(name, err, ms=None, plain_ms=None):
+    def record(name, err, ms=None, plain_ms=None, bound=None,
+               library_ms=None):
         s = stats.setdefault(name, {"max_abs_err": 0.0})
         s["max_abs_err"] = max(s["max_abs_err"], err)
         if ms is not None:
-            s["ms"], s["plain_ms"] = ms, plain_ms
+            s.update(ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                     bound_by=bound[1], library_ms=library_ms)
 
     # --- blur: unmasked and masked, hw 4 and 5 -------------------------
     x = torch.randn(shape, generator=gen, device=dev)
@@ -244,8 +307,22 @@ def phase_kernels(chk, card, shape=MAIN_SHAPE, dev="cuda"):
         if hw == 4:
             ms = cuda_ms(lambda: blur_cuda.blur3(x, ks), 20)
             pms = cuda_ms(lambda: blur_cuda.blur3_plain(x, ks), 5)
-            record("blur3", err, ms, pms)
-            print(f"  blur3 hw=4: kernel {ms:.3f} ms, plain {pms:.3f} ms "
+            # the library yardstick: one cuDNN conv3d with the outer
+            # product of the taps, flipped (conv3d correlates)
+            kx, ky, kz = ks
+            k3 = (kz[:, None, None] * ky[None, :, None]
+                  * kx[None, None, :]).flip(0, 1, 2)[None, None]
+            conv3d = torch.nn.functional.conv3d
+            lib = conv3d(x[None, None], k3, padding=hw)[0, 0]
+            ok_l, err_l, _ = close(lib, got, 1e-4, 1e-5)
+            chk.check(ok_l, f"conv3d (library yardstick) == blur3 hw=4 to "
+                            f"rtol 1e-4: max|d|={err_l:.3g}")
+            del lib
+            lms = cuda_ms(lambda: conv3d(x[None, None], k3, padding=hw), 5)
+            b = bound_ms(8 * nvox, 3 * BLUR_OPS_PER_TAP * (2 * hw + 1) * nvox)
+            record("blur3", err, ms, pms, b, lms)
+            print(f"  blur3 hw=4: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+                  f"conv3d {lms:.3f} ms, bound {b[0]:.3f} ms ({b[1]}) "
                   f"[{card}]")
 
     # --- Hessian + eigensolve: every formula, with the vector ----------
@@ -271,9 +348,11 @@ def phase_kernels(chk, card, shape=MAIN_SHAPE, dev="cuda"):
                                               True), 20)
     pms = cuda_ms(lambda: EC.hessian_principal_plain(blur, 1.73, True,
                                                      "planar", True), 3)
-    record("hessian_principal", 0.0, ms, pms)
+    b = bound_ms(20 * nvox, (HESSIAN_OPS + SCORE_OPS["planar"]) * nvox)
+    record("hessian_principal", 0.0, ms, pms, b)
     print(f"  hessian_principal planar+v: kernel {ms:.3f} ms, plain "
-          f"{pms:.3f} ms (on the card) [{card}]")
+          f"{pms:.3f} ms (on the card), bound {b[0]:.3f} ms ({b[1]}) "
+          f"[{card}]")
 
     # --- TV: hw=3, exponent 4 -------------------------------------------
     hw = 3
@@ -310,10 +389,17 @@ def phase_kernels(chk, card, shape=MAIN_SHAPE, dev="cuda"):
     ms_sp = cuda_ms(lambda: tv_votes(sal_planes, nv, sigma, sparse=True,
                                      **kw), 5)
     pms = cuda_ms(lambda: _tv_twin(sal_planes, nv, sigma, ratio), 2)
-    record("tv_votes", 0.0, ms, pms)
+    # the main path's mode (sparse) on its kind of field (-tv-best 0.05)
+    b = bound_ms(*tv_work(sal_planes, nvox, nvox, hw, ratio, sigma, False))
+    record("tv_votes", 0.0, ms_sp, pms, b)
+    ms_dd = cuda_ms(lambda: tv_votes(sal_dense, nv, sigma, **kw), 5)
+    b_dd = bound_ms(*tv_work(sal_dense, nvox, nvox, hw, ratio, sigma, False))
     print(f"  tv_votes hw=3 e=4 planes field ({occ:.4f} occupied): dense "
           f"kernel {ms:.3f} ms, sparse kernel {ms_sp:.3f} ms, plain "
-          f"{pms:.3f} ms [{card}]")
+          f"{pms:.3f} ms, bound {b[0]:.3f} ms ({b[1]}); dense field "
+          f"({float((sal_dense != 0).float().mean()):.4f} occupied): dense "
+          f"kernel {ms_dd:.3f} ms, bound {b_dd[0]:.3f} ms ({b_dd[1]}) "
+          f"[{card}]")
 
     # --- sym3 score of the vote tensor: stick, with v -------------------
     # (the twin on the CPU copy, as for the Hessian kernel)
@@ -325,9 +411,35 @@ def phase_kernels(chk, card, shape=MAIN_SHAPE, dev="cuda"):
     ms = cuda_ms(lambda: EC.sym3_score(vote, True, "stick", False), 20)
     pms = cuda_ms(lambda: EC.sym3_score_plain(vote, True, "stick", False),
                   3)
-    record("sym3_score", 0.0, ms, pms)
+    # the library yardstick: one torch.linalg.eigvalsh of the (N, 3, 3)
+    # matrices (built outside the timed call; stick = l2 - l1).  Through
+    # MAGMA: cuSOLVER's batched syev refuses batches of 2^16 matrices and
+    # more (CUSOLVER_STATUS_INVALID_VALUE, torch 2.11 + CUDA 12.8).  One
+    # timed call, after a warm-up on 1024 matrices: it takes about a
+    # minute.
+    del raw, s_k, v_k
+    t = vote.reshape(6, -1)
+    mats = torch.stack([t[0], t[3], t[5], t[3], t[1], t[4], t[5], t[4],
+                        t[2]], dim=-1).reshape(-1, 3, 3)
+    del t
+    backend = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("magma")
+    try:
+        torch.linalg.eigvalsh(mats[:1024])
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        torch.linalg.eigvalsh(mats)
+        b.record()
+        b.synchronize()
+        lms = a.elapsed_time(b)
+    finally:
+        torch.backends.cuda.preferred_linalg_library(backend)
+    del mats
+    b = bound_ms(28 * nvox, (SYM3_OPS + SCORE_OPS["stick"]) * nvox)
+    record("sym3_score", 0.0, ms, pms, b, lms)
     print(f"  sym3_score stick: kernel {ms:.3f} ms, plain {pms:.3f} ms "
-          f"(on the card) [{card}]", flush=True)
+          f"(on the card), eigvalsh {lms:.3f} ms, bound {b[0]:.3f} ms "
+          f"({b[1]}) [{card}]", flush=True)
     return stats
 
 
@@ -609,6 +721,414 @@ def phase_card_vs_cpu(chk, card, tmp, shape=(80, 96, 112), dev="cuda"):
                   f"max|d|={err:.3g} (atol {atol:.3g}), {bad} voxels out")
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the -mesh path
+
+def _mesh(n=MESH_DEVICES):
+    """The phase's (2, 2) mesh: the blocks on the visible cards in turn
+    (all on cuda:0 with one card)."""
+    import torch
+    from visfd_tpu_torch.parallel.mesh import make_mesh
+    cards = torch.cuda.device_count()
+    return make_mesh(n, devices=[f"cuda:{i % cards}" for i in range(n)])
+
+
+def _whole(vol, dev="cuda:0"):
+    """A ShardedVolume assembled into one tensor on ``dev``."""
+    import torch
+    out = torch.empty(vol.shape, device=dev)
+    bz, by = vol.block_shape
+    pre = (slice(None),) * vol.lead
+    for iz, iy, b in vol.cells():
+        out[pre + (slice(iz * bz, (iz + 1) * bz),
+                   slice(iy * by, (iy + 1) * by))].copy_(b)
+    return out
+
+
+def _bits_differ(a, b) -> int:
+    """How many float32 values of ``a`` and ``b`` (a tensor, or a
+    ShardedVolume held against the whole tensor) differ in any bit
+    (-0.0 != +0.0); counted slab by slab to bound the memory."""
+    import torch
+    from visfd_tpu_torch.parallel.mesh import ShardedVolume
+    if isinstance(a, ShardedVolume):
+        bz, by = a.block_shape
+        pre = (slice(None),) * a.lead
+        return sum(_bits_differ(blk, b[pre + (
+            slice(iz * bz, (iz + 1) * bz), slice(iy * by, (iy + 1) * by))])
+            for iz, iy, blk in a.cells())
+    return sum(int(torch.count_nonzero(x.view(torch.int32)
+                                       != y.view(torch.int32)))
+               for x, y in zip(a, b.to(a.device)))
+
+
+def phase_mesh_kernels(chk, card, dev="cuda"):
+    """5a: the per-shard modes against their twins on one block of the
+    mesh run, with its halos; timed beside the single-device kernels on
+    as many voxels."""
+    import torch
+    from visfd_tpu_torch.ops import blur_cuda, eigen_cuda as EC
+    from visfd_tpu_torch.ops import kernels as K
+    from visfd_tpu_torch.ops.tv_cuda import (
+        _tv_votes_prepadded_plain, tv_votes, tv_votes_prepadded)
+
+    nz, ny, nx = MESH_SHAPE
+    block = (nz // 2, ny // 2, nx)
+    nvox = int(np.prod(block))
+    print(f"== phase 5a: per-shard kernels against their twins, block "
+          f"(Z, Y, X) = {block} with halos [{card}]", flush=True)
+    dev = torch.device(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+    stats = {}
+
+    # --- Hessian + eigensolve on a 1-haloed block ----------------------
+    x = torch.randn(tuple(n + 2 for n in block), generator=gen, device=dev)
+    bp = blur_cuda.blur3(x, [torch.as_tensor(K.gauss_kernel_1d(1.73, 4),
+                                             device=dev)] * 3)
+    del x
+    raw = EC.hessian_principal_prepadded_plain(bp.cpu(), 1.73, True, "vals",
+                                               True)
+    out = EC.hessian_principal_prepadded(bp, 1.73, True, "planar", True)
+    err = _eigen_check(chk, f"hessian_principal_prepadded planar+v {block}",
+                       out[0], out[1:4], raw, "planar")
+    del raw, out
+    inner = bp[1:-1, 1:-1, 1:-1].contiguous()
+    ms = cuda_ms(lambda: EC.hessian_principal_prepadded(bp, 1.73), 10)
+    ms1 = cuda_ms(lambda: EC.hessian_principal(inner, 1.73), 10)
+    pms = cuda_ms(lambda: EC.hessian_principal_prepadded_plain(bp, 1.73),
+                  2)
+    b = bound_ms(4 * bp.numel() + 16 * nvox,
+                 (HESSIAN_OPS + SCORE_OPS["planar"]) * nvox)
+    stats["hessian_principal_prepadded"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+        library_ms=None)
+    print(f"  hessian_principal_prepadded planar+v: kernel {ms:.3f} ms, "
+          f"single-device kernel on the same voxels {ms1:.3f} ms, plain "
+          f"{pms:.3f} ms (on the card), bound {b[0]:.3f} ms ({b[1]}) "
+          f"[{card}]")
+    del bp, inner
+
+    # --- voting on hw-haloed fields: masked + denominator, then the
+    #     main path's sparse mode on a 5%-planes field ------------------
+    hw = 3
+    sigma = hw / np.sqrt(2.0) + 1e-6
+    ratio = float(np.sqrt(2.0))
+    pshape = tuple(n + 2 * hw for n in block)
+    u = torch.rand(pshape, generator=gen, device=dev)
+    sal = torch.where(u > 0.4, u, 0.0)
+    m = (torch.rand(pshape, generator=gen, device=dev) > 0.2).float()
+    nv = torch.randn((3,) + pshape, generator=gen, device=dev)
+    nv = nv / nv.norm(dim=0, keepdim=True)
+    kw = dict(exponent=4, truncate_ratio=ratio, channel_major=True,
+              nvec_channel_major=True)
+    got, got_den = tv_votes_prepadded(sal, nv, sigma, block, mask_pad=m,
+                                      want_denominator=True, **kw)
+    raw = _tv_votes_prepadded_plain(sal, nv, m, block, sigma, 4, False,
+                                    ratio, True)
+    err_tv = _tv_check(chk, f"tv_votes_prepadded hw=3 e=4 masked+"
+                            f"denominator {block}", got, got_den, raw)
+    del raw
+    sp, sp_den = tv_votes_prepadded(sal, nv, sigma, block, mask_pad=m,
+                                    want_denominator=True, sparse=True, **kw)
+    _sparse_equals_dense(chk, "tv_votes_prepadded", sp, sp_den, got,
+                         got_den)
+    del got, got_den, sp, sp_den, m
+    z = torch.arange(pshape[0], device=dev)[:, None, None]
+    planes = torch.where(z % 20 == 0, u, 0.0)
+    del u, sal
+    ms = cuda_ms(lambda: tv_votes_prepadded(planes, nv, sigma, block,
+                                            sparse=True, **kw), 5)
+    inner_s = planes[hw:-hw, hw:-hw, hw:-hw].contiguous()
+    inner_n = nv[:, hw:-hw, hw:-hw, hw:-hw].contiguous()
+    ms1 = cuda_ms(lambda: tv_votes(inner_s, inner_n, sigma, sparse=True,
+                                   **kw), 5)
+    del inner_s, inner_n
+    pms = cuda_ms(lambda: _tv_votes_prepadded_plain(
+        planes, nv, None, block, sigma, 4, False, ratio, False), 1)
+    b = bound_ms(*tv_work(planes, nvox, planes.numel(), hw, ratio, sigma,
+                          False))
+    stats["tv_votes_prepadded"] = dict(
+        max_abs_err=err_tv, ms=ms, plain_ms=pms, bound_ms=b[0],
+        bound_by=b[1], library_ms=None)
+    print(f"  tv_votes_prepadded hw=3 e=4 sparse, planes field "
+          f"({float((planes != 0).float().mean()):.4f} occupied): kernel "
+          f"{ms:.3f} ms, single-device kernel on the same voxels "
+          f"{ms1:.3f} ms, plain {pms:.3f} ms, bound {b[0]:.3f} ms ({b[1]}) "
+          f"[{card}]", flush=True)
+    return stats
+
+
+def phase_mesh_small(chk, card, dev="cuda"):
+    """5a, continued: the sharded wrappers (halo exchange + per-shard
+    kernels) on small volumes whose blocks are 1, 2 and 3 voxels thick,
+    under a vote halo deeper than a block: bit for bit against the
+    single-device kernels, and against the plain twins to the kernels'
+    tolerances.  Returns max |d| per kernel."""
+    import torch
+    from visfd_tpu_torch.ops import eigen_cuda as EC
+    from visfd_tpu_torch.ops.tv_cuda import _tv_votes_plain, tv_votes
+    from visfd_tpu_torch.parallel import sharded as SH
+    from visfd_tpu_torch.parallel.mesh import Mesh, shard
+
+    print(f"== phase 5a: sharded wrappers on thin blocks [{card}]",
+          flush=True)
+    rng = np.random.default_rng(SEED + 51)
+    dev = torch.device(dev)
+    errs = {}
+    cases = [
+        # (Z, Y, X), mesh grid, vote hw, exponent, curves, masked
+        ((4, 6, 37), (4, 2), 3, 4, False, True),    # blocks (1, 3)
+        ((6, 4, 45), (3, 2), 2, 4, True, False),    # blocks (2, 2)
+        ((9, 9, 29), (3, 3), 3, 3, False, False),   # blocks (3, 3)
+        ((3, 8, 70), (1, 4), 3, 4, False, True),    # blocks (3, 2)
+    ]
+    for shape, grid, hw, e, curves, masked in cases:
+        mesh = Mesh(tuple((dev,) * grid[1] for _ in range(grid[0])))
+        label = (f"{shape} on {grid}, blocks "
+                 f"{(shape[0] // grid[0], shape[1] // grid[1])}")
+        x = rng.normal(size=shape).astype(np.float32)
+        xc = torch.tensor(x, device=dev)
+        formula = "linear" if curves else "planar"
+        s1, v1 = EC.hessian_principal(xc, 1.7, formula=formula)
+        ss, vs = SH.hessian_principal_sharded(shard(xc, mesh), 1.7,
+                                              formula=formula)
+        ss, vs = _whole(ss), _whole(vs)
+        nd = _bits_differ(ss, s1) + _bits_differ(vs, v1)
+        chk.check(nd == 0, f"{label} hessian sharded == single-device "
+                           f"kernel: {nd} values differ")
+        raw = EC.hessian_principal_plain(torch.tensor(x), 1.7, True, "vals",
+                                         True)
+        errs["hessian_principal_prepadded"] = max(
+            errs.get("hessian_principal_prepadded", 0.0), _eigen_check(
+                chk, f"{label} hessian sharded {formula}", ss, vs, raw,
+                formula))
+        sal = torch.where(ss > ss.quantile(0.5), ss, 0.0)
+        m = torch.tensor((rng.uniform(size=shape) > 0.25).astype(
+            np.float32), device=dev) if masked else None
+        sigma = hw / np.sqrt(2.0) + 1e-6
+        ratio = float(np.sqrt(2.0))
+        kw = dict(exponent=e, detect_curves=curves, truncate_ratio=ratio,
+                  want_denominator=masked, channel_major=True,
+                  nvec_channel_major=True)
+        want, want_den = tv_votes(sal, v1, sigma, mask_src=m, **kw)
+        raw = _tv_votes_plain(sal, v1, m, sigma, e, curves, ratio, masked)
+        for sparse in (False, True):
+            got, got_den = SH.tv_accumulate_sharded(
+                shard(sal, mesh), shard(v1, mesh, lead=1),
+                None if m is None else shard(m, mesh), sigma, e, curves,
+                ratio, masked, sparse=sparse)
+            got = _whole(got)
+            got_den = None if got_den is None else _whole(got_den)
+            nd = _bits_differ(got, want) + (
+                0 if got_den is None else _bits_differ(got_den, want_den))
+            tag = (f"{label} votes hw={hw} e={e}"
+                   f"{' curves' if curves else ''}"
+                   f"{' masked+denominator' if masked else ''}"
+                   f"{' sparse' if sparse else ' dense'}")
+            chk.check(nd == 0, f"{tag} sharded == single-device kernel: "
+                               f"{nd} values differ")
+            errs["tv_votes_prepadded"] = max(
+                errs.get("tv_votes_prepadded", 0.0),
+                _tv_check(chk, f"{tag} sharded", got, got_den, raw))
+        sc1, _ = EC.sym3_score(want, formula="linear" if curves else "stick")
+        scs, _ = SH.sym3_score_sharded(shard(want, mesh, lead=1),
+                                       formula="linear" if curves
+                                       else "stick")
+        nd = _bits_differ(_whole(scs), sc1)
+        chk.check(nd == 0, f"{label} vote score sharded == single-device "
+                           f"kernel: {nd} values differ")
+    return errs
+
+
+def phase_mesh_stages(chk, card, dev="cuda"):
+    """5b: every sharded stage against its single-device counterpart on
+    the card at MESH_SHAPE, each fed the same inputs; counts the voxels
+    whose bits differ and times both.  Returns the halo-copy time."""
+    import torch
+    from visfd_tpu_torch.ops import eigen_cuda as EC
+    from visfd_tpu_torch.ops import filters as F
+    from visfd_tpu_torch.ops.tv_cuda import tv_votes
+    from visfd_tpu_torch.parallel import sharded as SH
+    from visfd_tpu_torch.parallel.halo import halo_pad_2d
+    from visfd_tpu_torch.parallel.reduce import fraction_threshold
+    from visfd_tpu_torch.parallel.mesh import shard
+    from visfd_tpu_torch.utils.phantom import membrane_phantom
+
+    mesh = _mesh()
+    print(f"== phase 5b: sharded stages against single-device ones, "
+          f"(Z, Y, X) = {MESH_SHAPE}, mesh {mesh.shape} on "
+          f"{sorted({str(d) for r in mesh.devices for d in r})} [{card}]",
+          flush=True)
+    dev = torch.device(dev)
+    vol, _ = membrane_phantom(MESH_SHAPE, seed=SEED + 52, thickness=3.0,
+                              device=dev)
+    sigma, hwb = 3.0 / np.sqrt(3.0), 4
+    times = {}
+
+    def both(name, single, sharded, reps=3):
+        t1 = cuda_ms(single, reps)
+        t4 = cuda_ms(sharded, reps)
+        times[name] = (t1, t4)
+        print(f"  {name}: single device {t1:.3f} ms, sharded {t4:.3f} ms "
+              f"[{card}]", flush=True)
+
+    # blur
+    blur = F.apply_gauss(vol, sigma, truncate_halfwidth=(hwb,) * 3)
+    xs = shard(vol, mesh)
+    nd = _bits_differ(F.apply_gauss(xs, sigma, truncate_halfwidth=(
+        hwb,) * 3), blur)
+    chk.check(nd == 0, f"blur sharded == single device: {nd} voxels differ")
+    both("blur (hw 4)",
+         lambda: F.apply_gauss(vol, sigma, truncate_halfwidth=(hwb,) * 3),
+         lambda: F.apply_gauss(xs, sigma, truncate_halfwidth=(hwb,) * 3))
+    del vol, xs
+
+    # Hessian + eigensolve
+    score, v = EC.hessian_principal(blur, sigma)
+    bs = shard(blur, mesh)
+    ss, vs = SH.hessian_principal_sharded(bs, sigma)
+    nd = _bits_differ(ss, score) + _bits_differ(vs, v)
+    chk.check(nd == 0, f"hessian sharded == single device: {nd} values "
+                       f"differ")
+    del ss, vs
+    both("hessian_principal planar+v",
+         lambda: EC.hessian_principal(blur, sigma),
+         lambda: SH.hessian_principal_sharded(bs, sigma))
+    del bs, blur
+
+    # the -tv-best threshold: sort against radix selection over blocks
+    sc_s = shard(score, mesh)
+    thr = fraction_threshold(score, 0.05)
+    thr_s = fraction_threshold(sc_s, 0.05)
+    chk.check(np.float32(thr).view(np.int32)
+              == np.float32(thr_s).view(np.int32),
+              f"-tv-best 0.05 threshold: single device {thr!r}, mesh "
+              f"{thr_s!r}")
+    both("threshold (sort / radix)", lambda: fraction_threshold(score, 0.05),
+         lambda: fraction_threshold(sc_s, 0.05), reps=2)
+    del sc_s
+    sal = torch.where(score < thr, 0.0, score)
+    del score
+
+    # voting, sparse (the main path) and dense; hw 3
+    hw = 3
+    tv_sigma = hw / np.sqrt(2.0) + 1e-6
+    ratio = float(np.sqrt(2.0))
+    vote, _ = tv_votes(sal, v, tv_sigma, truncate_ratio=ratio, sparse=True,
+                       channel_major=True, nvec_channel_major=True)
+    sal_s, v_s = shard(sal, mesh), shard(v, mesh, lead=1)
+    for sparse in (True, False):
+        got, _ = SH.tv_accumulate_sharded(sal_s, v_s, None, tv_sigma, 4, False,
+                                          ratio, False, sparse=sparse)
+        nd = _bits_differ(got, vote)
+        del got
+        chk.check(nd == 0, f"votes sharded {'sparse' if sparse else 'dense'}"
+                           f" == single device (sparse): {nd} values differ")
+    both("tv sparse (hw 3)",
+         lambda: tv_votes(sal, v, tv_sigma, truncate_ratio=ratio,
+                          sparse=True, channel_major=True,
+                          nvec_channel_major=True),
+         lambda: SH.tv_accumulate_sharded(sal_s, v_s, None, tv_sigma, 4,
+                                          False, ratio, False, sparse=True),
+         reps=2)
+    halo_ms = cuda_ms(lambda: (halo_pad_2d(sal_s, hw, hw),
+                               halo_pad_2d(v_s, hw, hw)), 3)
+    print(f"  halo copies of the voting's inputs (saliency + direction, "
+          f"{hw} rows): {halo_ms:.3f} ms [{card}]")
+    del sal, v, sal_s, v_s
+
+    # the vote tensor's score
+    s1, _ = EC.sym3_score(vote)
+    vote_s = shard(vote, mesh, lead=1)
+    s4, _ = SH.sym3_score_sharded(vote_s)
+    nd = _bits_differ(s4, s1)
+    chk.check(nd == 0, f"vote score sharded == single device: {nd} voxels "
+                       f"differ")
+    both("sym3_score stick", lambda: EC.sym3_score(vote),
+         lambda: SH.sym3_score_sharded(vote_s))
+    return halo_ms
+
+
+def phase_mesh_cli(chk, card, tmp, dev="cuda"):
+    """5c: the -mesh CLI against the single-device CLI at MESH_SHAPE."""
+    import torch
+    from visfd_tpu_torch.cli import filter_mrc as TFM
+    from visfd_tpu_torch.io import mrc
+    from visfd_tpu_torch.ops import blur_cuda, eigen_cuda as EC
+    from visfd_tpu_torch.ops import tv_cuda
+    from visfd_tpu_torch.utils.phantom import membrane_phantom
+    from visfd_tpu_torch.utils.progress import Report
+
+    mesh_devs = [d for row in _mesh().devices for d in row]
+    shape = MESH_SHAPE
+    print(f"== phase 5c: filter_mrc -mesh {MESH_DEVICES}, "
+          f"{'x'.join(map(str, shape[::-1]))} (X x Y x Z), blocks on "
+          f"{[str(d) for d in mesh_devs]} [{card}]", flush=True)
+    wrappers = {"blur3": blur_cuda.blur3,
+                "hessian_principal": EC.hessian_principal,
+                "hessian_principal_prepadded": EC.hessian_principal_prepadded,
+                "tv_votes": tv_cuda.tv_votes,
+                "tv_votes_prepadded": tv_cuda.tv_votes_prepadded,
+                "sym3_score": EC.sym3_score}
+    vol, dist = membrane_phantom(shape, seed=SEED + 53, thickness=3.0,
+                                 device=dev)
+    fin = os.path.join(tmp, "mesh_in.mrc")
+    mrc.write_mrc(fin, vol.cpu().numpy())
+    del vol
+    args = "-w 1 -membrane minima 3 -tv 1.5 -tv-angle-exponent 4"
+    outs, launches = {}, {}
+    for label, extra in (("-mesh", ["-mesh", str(MESH_DEVICES)]),
+                         ("single device", [])):
+        fout = os.path.join(tmp, f"mesh_out{len(outs)}.mrc")
+        for w in wrappers.values():
+            w.launches = 0
+        cards = range(torch.cuda.device_count())
+        for c in cards:
+            torch.cuda.reset_peak_memory_stats(c)
+        rep = Report(None)
+        t0 = time.perf_counter()
+        rc = TFM.run(["-in", fin, "-out", fout] + args.split() + extra,
+                     device=dev, report=rep, mesh_devices=mesh_devs)
+        wall = time.perf_counter() - t0
+        counts = {k: w.launches for k, w in wrappers.items()}
+        peak = max(torch.cuda.max_memory_allocated(c) for c in cards) / 2**30
+        chk.check(rc == 0, f"filter_mrc {args} {' '.join(extra)} exit {rc}")
+        print(f"  {label}: wall {wall:.3f} s for read + filter + write; "
+              f"stages: " + ", ".join(f"{k} {v:.3f} s"
+                                      for k, v in rep.timings.items())
+              + f"; peak device memory {peak:.2f} GiB on one card; "
+              f"{rep.format_paths()}; launches {counts} [{card}]")
+        outs[label] = (mrc.read_mrc(fout).data, rep.paths)
+        launches[label] = counts
+        os.unlink(fout)
+    os.unlink(fin)
+    (meshed, paths), (single, paths1) = outs["-mesh"], outs["single device"]
+    n = len(mesh_devs)
+    lm = launches["-mesh"]
+    chk.check(lm["hessian_principal_prepadded"] == n
+              and lm["tv_votes_prepadded"] == n and lm["sym3_score"] == n
+              and lm["blur3"] == n and lm["hessian_principal"] == 0
+              and lm["tv_votes"] == 0,
+              f"-mesh run: each per-shard kernel launched once per block "
+              f"({n}), no single-device Hessian or voting launch: {lm}")
+    l1 = launches["single device"]
+    chk.check(all(l1[k] > 0 for k in ("blur3", "hessian_principal",
+                                       "tv_votes", "sym3_score")),
+              f"single-device run launched its kernels: {l1}")
+    chk.check(paths.get("tv") == "cuda-sharded-sparse"
+              and paths.get("hessian_eigen") == "cuda-sharded"
+              and paths1.get("tv") == "cuda-sparse",
+              f"paths: -mesh {paths}, single device {paths1}")
+    nd = int((meshed.view(np.int32) != single.view(np.int32)).sum())
+    chk.check(meshed.shape == shape and nd == 0,
+              f"-mesh output == single-device output: {nd} voxels differ")
+    chk.check(bool(np.isfinite(meshed).all()), "-mesh output finite")
+    share = _membrane_metrics(torch.tensor(meshed, device=dev), dist, 3.0)
+    chk.check(share >= 0.9, f"top 0.5% voxels within 3 voxels of a phantom "
+                            f"membrane: {share:.4f}")
+    return lm
+
+
 def main() -> int:
     try:
         import torch  # noqa: F401
@@ -634,6 +1154,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix=".tmp_chip_smoke_", dir=ROOT) as tmp:
         main_path = chk.run(phase_main_path, chk, card, tmp)
         chk.run(phase_card_vs_cpu, chk, card, tmp)
+        mesh_stats = chk.run(phase_mesh_kernels, chk, card)
+        mesh_small = chk.run(phase_mesh_small, chk, card)
+        chk.run(phase_mesh_stages, chk, card)
+        mesh_launches = chk.run(phase_mesh_cli, chk, card, tmp)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     if chk.failed:
         print(f"chip_smoke: {len(chk.failed)} check(s) failed:",
@@ -642,14 +1166,23 @@ def main() -> int:
             print(f"  {f}", file=sys.stderr)
         return 1
     launches, main_errs = main_path
+    # launches: the main path's run (phase 3) for the single-device
+    # kernels, the -mesh run (5c) for the per-shard modes
+    launches = {**launches,
+                **{k: mesh_launches[k] for k in ("hessian_principal_prepadded",
+                                                 "tv_votes_prepadded")}}
+    stats = {**stats, **mesh_stats}
+    errs = [small, main_errs, mesh_small]
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         s = stats[name]
-        err = max(s["max_abs_err"], small[name], main_errs[name])
+        err = max([s["max_abs_err"]] + [e.get(name, 0.0) for e in errs])
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": err, "ms": s["ms"],
-                        "plain_ms": s["plain_ms"]})
+                        "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+                        "bound_by": s["bound_by"],
+                        "library_ms": s["library_ms"]})
     import torch
     print(card)
     print(json.dumps({"kernels": kernels}))

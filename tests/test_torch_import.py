@@ -27,7 +27,9 @@ SLICE_MODULES = [
     "visfd_tpu_torch.ops.resample", "visfd_tpu_torch.ops.eigen_cuda",
     "visfd_tpu_torch.ops.tv_cuda", "visfd_tpu_torch.linalg.sym3",
     "visfd_tpu_torch.features.hessian", "visfd_tpu_torch.features.tv",
-    "visfd_tpu_torch.parallel.reduce", "visfd_tpu_torch.utils",
+    "visfd_tpu_torch.parallel.reduce", "visfd_tpu_torch.parallel.mesh",
+    "visfd_tpu_torch.parallel.halo", "visfd_tpu_torch.parallel.gather",
+    "visfd_tpu_torch.parallel.sharded", "visfd_tpu_torch.utils",
     "visfd_tpu_torch.utils.progress", "visfd_tpu_torch.utils.phantom",
     "visfd_tpu_torch.cli.settings",
     "visfd_tpu_torch.cli.filter_mrc",

@@ -43,12 +43,19 @@ _SIGNATURES = {
     "visfd_conv1d_axis": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # blur, out, nz, ny, nx, sigma^2, decreasing, formula, want_v, stream
     "visfd_hessian_principal": [_P, _P, _I, _I, _I, _F, _I, _I, _I, _P],
+    # blur_pad (nz+2, ny+2, nx+2), out, nz, ny, nx, sigma^2, decreasing,
+    # formula, want_v, stream
+    "visfd_hessian_principal_prepadded": [_P, _P, _I, _I, _I, _F, _I, _I,
+                                          _I, _P],
     # t6, out, nvox, decreasing, formula, want_v, stream
     "visfd_sym3_score": [_P, _P, _I64, _I, _I, _I, _P],
     # sal, nvec, mask, taps, out, nz, ny, nx, hw, exponent, curves,
     # want_den, sparse, stream
     "visfd_tv_votes": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                        _I, _P],
+    # the same, the fields (nz+2hw, ny+2hw, nx+2hw) with filled halos
+    "visfd_tv_votes_prepadded": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _I, _I, _P],
 }
 
 

@@ -10,15 +10,25 @@ eigensolve + score (``ops/eigen_cuda.hessian_principal``), stick
 voting (``ops/tv_cuda``, sparse under ``-tv-best`` <= 0.5) and the
 vote tensor's eigen score (``ops/eigen_cuda.sym3_score``).
 
+With ``-mesh N|auto|all`` the volume is split into (z, y) blocks over a
+grid of devices (``parallel/mesh``, by default the visible cards) and
+``handle_tv`` runs the sharded stages (``parallel/sharded``: halo
+exchange, then the per-shard kernels on every block) and the
+``-tv-best`` threshold as an exact radix selection over the blocks
+(``parallel/reduce``); the output equals the single-device run's.  One
+process drives every block: a multi-process cluster (``VISFD_COORDINATOR``
+or ``VISFD_NUM_PROCESSES`` set) is refused.
+
 Every flag outside this slice raises ``InputError`` naming it.
 
 Usage: python -m visfd_tpu_torch.cli.filter_mrc -in in.rec -out out.rec
-       -w 1 -membrane minima 3 -tv 1.5
+       -w 1 -membrane minima 3 -tv 1.5 [-mesh 4]
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import sys
 from typing import Optional
 
@@ -32,7 +42,12 @@ from visfd_tpu_torch.ops import filters as F
 from visfd_tpu_torch.ops import resample as R
 from visfd_tpu_torch.ops.eigen_cuda import hessian_principal, sym3_score
 from visfd_tpu_torch.ops.tv_cuda import tv_votes
+from visfd_tpu_torch.parallel.gather import to_host_np
+from visfd_tpu_torch.parallel.mesh import Mesh, bmap, divides, make_mesh, shard
 from visfd_tpu_torch.parallel.reduce import fraction_threshold
+from visfd_tpu_torch.parallel.sharded import (
+    grid_mesh_of, hessian_principal_sharded, sym3_score_sharded,
+    tv_accumulate_sharded)
 from visfd_tpu_torch.utils.progress import Report, stage
 
 # The flags this slice handles -> how many arguments follow each
@@ -52,7 +67,12 @@ _HANDLED_FLAGS = {
     "-no-normalize-near-boundaries": 0,
     "-invert": 0, "-inv": 0,
     "-rescale-min-max": None, "-rescale-min-max-in": 0,
+    "-mesh": 1,
 }
+
+# the variables with which the JAX package joins a multi-process cluster
+# (visfd_tpu/parallel/distributed.py)
+_CLUSTER_ENV = ("VISFD_COORDINATOR", "VISFD_NUM_PROCESSES")
 
 
 def _check_flags(argv) -> None:
@@ -82,6 +102,25 @@ def _truncate_ratio(s: Settings) -> float:
     if not s.filter_truncate_threshold > 0:
         raise InputError("Error: the truncation threshold must be > 0")
     return float(np.sqrt(-2.0 * np.log(s.filter_truncate_threshold)))
+
+
+def _cli_mesh(s: Settings, devices=None) -> Optional[Mesh]:
+    """The (z, y) device mesh requested with ``-mesh``, or None; drawn
+    from ``devices`` (default: the visible CUDA cards)."""
+    if not s.mesh_devices:
+        return None
+    return make_mesh(None if s.mesh_devices < 0 else s.mesh_devices,
+                     devices=devices)
+
+
+def _maybe_shard(arr, mesh: Optional[Mesh], device):
+    """``arr`` split into the mesh's (z, y) blocks, or whole on
+    ``device`` without a mesh."""
+    if arr is None:
+        return None
+    if mesh is None:
+        return torch.tensor(arr, dtype=torch.float32, device=device)
+    return shard(arr, mesh)
 
 
 def determine_voxel_width(s: Settings, img: mrc.MrcImage) -> np.ndarray:
@@ -133,19 +172,32 @@ def handle_binning(s: Settings, img, mask_img, w, device):
     return img, mask_img
 
 
-def handle_tv(s: Settings, x_np, mask_np, device, rep: Report) -> np.ndarray:
+def handle_tv(s: Settings, x_np, mask_np, device, rep: Report,
+              mesh: Optional[Mesh] = None) -> np.ndarray:
     """``HandleTV`` (``handlers.cpp:1501-2357``) for -membrane and
-    -curve: the channel-major kernel path of the JAX CLI."""
+    -curve: the channel-major kernel path of the JAX CLI, on ``device``
+    or, with a ``mesh``, sharded over its (z, y) blocks.  A volume the
+    mesh does not divide runs on ``device``, as the JAX CLI leaves it to
+    XLA."""
     curve = s.filter_type == S.CURVE
     decreasing = not s.ridges_are_maxima
-    route = "cuda" if device.type == "cuda" else "plain"
     sigma = s.width_a[0]
     tr = _truncate_ratio(s)
-    x = torch.tensor(x_np, dtype=torch.float32, device=device)
-    mask = keep = None
-    if mask_np is not None:
-        mask = torch.tensor(mask_np, dtype=torch.float32, device=device)
-        keep = mask != 0
+    if mesh is not None and not divides(x_np.shape, mesh):
+        print(f"-mesh: volume {tuple(x_np.shape)} not divisible by the "
+              f"{mesh.shape} device grid; sharding axes (None, None)",
+              file=sys.stderr)
+        mesh = None
+    with stage("copy the volume to the device", rep):
+        x = _maybe_shard(x_np, mesh, device)
+        mask = _maybe_shard(mask_np, mesh, device)
+    keep = None if mask is None else bmap(lambda m: m != 0, mask)
+    sharded = grid_mesh_of(x) is not None
+    on_card = (mesh.devices[0][0] if sharded else device).type == "cuda"
+    route = ("cuda" if on_card else "plain") + ("-sharded" if sharded
+                                                else "")
+    hessian = hessian_principal_sharded if sharded else hessian_principal
+    vote_score = sym3_score_sharded if sharded else sym3_score
 
     background = None
     if s.width_b[0] > 0:
@@ -158,23 +210,24 @@ def handle_tv(s: Settings, x_np, mask_np, device, rep: Report) -> np.ndarray:
         hwb = max(1, int(np.floor(sigma * tr)))
         blur = F.apply_gauss(x, sigma, mask=mask,
                              truncate_halfwidth=(hwb,) * 3)
-        score, direction = hessian_principal(
+        score, direction = hessian(
             blur, sigma, decreasing=decreasing,
             formula="linear" if curve else "planar", want_v=True)
         rep.record_path("hessian_eigen", route)
     if background is not None:
-        score = score * (x - background)
+        score = bmap(lambda sc, v, bg: sc * (v - bg), score, x, background)
     if keep is not None:
-        score = torch.where(keep, score, 0.0)
-        direction = direction * keep
+        score = bmap(lambda sc, k: torch.where(k, sc, 0.0), score, keep)
+        direction = bmap(torch.mul, direction, keep)
 
     # saliency thresholding (top fraction) -- handlers.cpp:1751-1797
     thr = s.hessian_score_threshold
     if s.hessian_score_threshold_is_a_fraction:
         print(" -- sorting all voxels by ridge saliency --\n",
               file=sys.stderr)
-        thr = fraction_threshold(score, thr, mask=mask)
-    score = torch.where(score < thr, 0.0, score)
+        with stage("-tv-best threshold", rep):
+            thr = fraction_threshold(score, thr, mask=mask)
+    score = bmap(lambda sc: torch.where(sc < thr, 0.0, sc), score)
 
     if s.tv_sigma > 0:
         # -tv-best kept only the top fraction of saliencies: the sparse
@@ -182,40 +235,59 @@ def handle_tv(s: Settings, x_np, mask_np, device, rep: Report) -> np.ndarray:
         tv_sparse = bool(s.hessian_score_threshold_is_a_fraction
                          and float(s.hessian_score_threshold) <= 0.5)
         with stage("dense stick tensor voting", rep):
-            vote, _ = tv_votes(
-                score, direction, s.tv_sigma, exponent=s.tv_exponent,
-                mask_src=mask, detect_curves=curve,
-                truncate_ratio=s.tv_truncate_ratio, sparse=tv_sparse,
-                channel_major=True, nvec_channel_major=True)
+            if sharded:
+                vote, _ = tv_accumulate_sharded(
+                    score, direction, mask, s.tv_sigma, s.tv_exponent,
+                    curve, s.tv_truncate_ratio, False, sparse=tv_sparse)
+            else:
+                vote, _ = tv_votes(
+                    score, direction, s.tv_sigma, exponent=s.tv_exponent,
+                    mask_src=mask, detect_curves=curve,
+                    truncate_ratio=s.tv_truncate_ratio, sparse=tv_sparse,
+                    channel_major=True, nvec_channel_major=True)
             if keep is not None:
-                vote = torch.where(keep[None], vote, 0.0)
+                vote = bmap(lambda v, k: torch.where(k[None], v, 0.0),
+                            vote, keep)
             rep.record_path("tv", route + ("-sparse" if tv_sparse
-                                           and route == "cuda" else ""))
+                                           and on_card else ""))
         with stage("eigen score of the vote tensor", rep):
-            new_score, _ = sym3_score(
+            new_score, _ = vote_score(
                 vote, decreasing=decreasing,
                 formula="linear" if curve else "stick", want_v=False)
             rep.record_path("vote_eigen", route)
         if background is not None:
-            new_score = new_score * (x - background)
+            new_score = bmap(lambda sc, v, bg: sc * (v - bg), new_score, x,
+                             background)
         if keep is not None:
-            new_score = torch.where(keep, new_score, score)
+            new_score = bmap(lambda n, k, sc: torch.where(k, n, sc),
+                             new_score, keep, score)
         score = new_score
 
     rep.line(rep.format_paths())
-    return score.cpu().numpy()
+    with stage("copy the result to the host", rep):
+        return to_host_np(score)
 
 
-def run(argv, device="cuda", report: Optional[Report] = None) -> int:
+def run(argv, device="cuda", report: Optional[Report] = None,
+        mesh_devices=None) -> int:
     """Run filter_mrc on ``argv`` with the voxel work on ``device``
     (a library argument, not a flag: the command line always uses
-    CUDA).  ``report`` collects the stage timings (default: stderr)."""
+    CUDA).  ``report`` collects the stage timings (default: stderr).
+    ``mesh_devices`` lists the devices ``-mesh`` draws its blocks from
+    (default: the visible cards; a device may repeat, so a test can
+    put several blocks on one card or on the CPU)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("visfd_tpu_torch: no CUDA device is visible; "
                            "filter_mrc runs its kernels on an NVIDIA GPU")
     _check_flags(argv)
     s = S.parse_args(list(argv))
+    if s.mesh_devices and any(v in os.environ for v in _CLUSTER_ENV):
+        raise InputError(
+            f"Error: -mesh with {' or '.join(_CLUSTER_ENV)} set asks for a "
+            f"multi-process run, which visfd_tpu_torch does not run yet: "
+            f"one process drives every block (see ROADMAP.md)")
+    mesh = _cli_mesh(s, mesh_devices)
     if s.filter_type not in (S.SURFACE_RIDGE, S.CURVE):
         raise InputError("Error: visfd_tpu_torch runs -membrane or -curve "
                          "(with -tv) only so far")
@@ -269,7 +341,7 @@ def run(argv, device="cuda", report: Optional[Report] = None) -> int:
         raise InputError(f"Error: visfd_tpu_torch needs at least 3 voxels "
                          f"along every axis (after binning), got "
                          f"{x_np.shape[::-1]} (x, y, z)")
-    out = handle_tv(s, x_np, mask_np, device, rep)
+    out = handle_tv(s, x_np, mask_np, device, rep, mesh)
 
     if not s.out_file_name:
         return 0

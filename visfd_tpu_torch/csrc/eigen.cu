@@ -5,6 +5,11 @@
 //    hessian_principal_pallas): blurred volume -> finite-difference
 //    Hessian x sigma^2 -> principal eigensolve -> score (+ principal
 //    eigenvector), faces replicating the nearest interior voxel;
+//  * the same kernel with clamp=False (entry
+//    hessian_principal_pallas_prepadded, the per-shard mode of a -mesh
+//    run): the input is a block with 1-deep halos the caller filled from
+//    the neighbouring blocks, and nothing is clamped (the caller
+//    replicates the global faces afterwards, ops/eigen_cuda.clamp_faces);
 //  * _sym3_kernel (pallas_call in _sym3_score_impl; entry
 //    sym3_score_pallas): channel-major 6-channel symmetric field ->
 //    eigen score (+ principal eigenvector).
@@ -24,7 +29,10 @@
 // [1, n-2] on each axis, which is the same as evaluating the interior
 // and replicating it onto the faces (features/hessian._edge_clamp); the
 // 19 stencil reads of neighbouring threads overlap and are served by
-// L1.
+// L1.  In the prepadded mode the input is (nz+2, ny+2, nx+2) and output
+// voxel p reads the stencil centred on p + 1: the same 19 operands in
+// the same order as the single-device kernel at an interior voxel, so a
+// sharded run equals the single-device one bit for bit.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -51,7 +59,7 @@ __global__ void hessian_principal_kernel(const float* __restrict__ f,
                                          float* __restrict__ out, int nz,
                                          int ny, int nx, float s2,
                                          bool decreasing, int formula,
-                                         bool want_v) {
+                                         bool want_v, bool prepadded) {
   const int64_t nvox = static_cast<int64_t>(nz) * ny * nx;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
@@ -60,11 +68,19 @@ __global__ void hessian_principal_kernel(const float* __restrict__ f,
   const int64_t zy = i / nx;
   const int y = static_cast<int>(zy % ny);
   const int z = static_cast<int>(zy / ny);
-  const int cz = min(max(z, 1), nz - 2);
-  const int cy = min(max(y, 1), ny - 2);
-  const int cx = min(max(x, 1), nx - 2);
-  const int64_t c0 = (static_cast<int64_t>(cz) * ny + cy) * nx + cx;
-  const int64_t sz = static_cast<int64_t>(ny) * nx, sy = nx;
+  // stencil centre (cz, cy, cx) in the input, whose rows are fy x fx
+  int cz, cy, cx, fy, fx;
+  if (prepadded) {
+    cz = z + 1; cy = y + 1; cx = x + 1;
+    fy = ny + 2; fx = nx + 2;
+  } else {
+    cz = min(max(z, 1), nz - 2);
+    cy = min(max(y, 1), ny - 2);
+    cx = min(max(x, 1), nx - 2);
+    fy = ny; fx = nx;
+  }
+  const int64_t c0 = (static_cast<int64_t>(cz) * fy + cy) * fx + cx;
+  const int64_t sz = static_cast<int64_t>(fy) * fx, sy = fx;
   auto at = [&](int dz, int dy, int dx) {
     return f[c0 + dz * sz + dy * sy + dx];
   };
@@ -110,18 +126,34 @@ unsigned blocks_for(int64_t n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
 }
 
-}  // namespace
-
-extern "C" int visfd_hessian_principal(const void* blur, void* out, int nz,
-                                       int ny, int nx, float s2,
-                                       int decreasing, int formula,
-                                       int want_v, void* stream) {
+int launch_hessian(const void* blur, void* out, int nz, int ny, int nx,
+                   float s2, int decreasing, int formula, int want_v,
+                   bool prepadded, void* stream) {
   const int64_t nvox = static_cast<int64_t>(nz) * ny * nx;
   hessian_principal_kernel<<<blocks_for(nvox), kThreads, 0,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(blur), static_cast<float*>(out), nz, ny, nx,
-      s2, decreasing != 0, formula, want_v != 0);
+      s2, decreasing != 0, formula, want_v != 0, prepadded);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// (nz, ny, nx) is the output's shape in both entries; the prepadded
+// input is (nz+2, ny+2, nx+2).
+extern "C" int visfd_hessian_principal(const void* blur, void* out, int nz,
+                                       int ny, int nx, float s2,
+                                       int decreasing, int formula,
+                                       int want_v, void* stream) {
+  return launch_hessian(blur, out, nz, ny, nx, s2, decreasing, formula,
+                        want_v, false, stream);
+}
+
+extern "C" int visfd_hessian_principal_prepadded(
+    const void* blur_pad, void* out, int nz, int ny, int nx, float s2,
+    int decreasing, int formula, int want_v, void* stream) {
+  return launch_hessian(blur_pad, out, nz, ny, nx, s2, decreasing, formula,
+                        want_v, true, stream);
 }
 
 extern "C" int visfd_sym3_score(const void* t6, void* out, int64_t nvox,

@@ -1,8 +1,10 @@
 // Dense stick tensor voting by gather, with an optional sparse mode.
 //
 // Replaces: visfd_tpu/ops/tv_pallas.py, _tv_kernel (pallas_call in
-// _tv_pallas_one_call, driven by _tv_pallas_padded_core; entry
-// tv_dense_stick_pallas).  Each receiver sums, over the corner-truncated
+// _tv_pallas_one_call, driven by _tv_pallas_padded_core; entries
+// tv_dense_stick_pallas and, for the blocks of a -mesh run,
+// tv_dense_stick_pallas_prepadded).  Each receiver sums, over the
+// corner-truncated
 // window of (2hw+1)^3 sources s = receiver - j, the stick vote
 //   sal(s) w(j) ang^(e/2) r r^T,  sin = n(s).rhat, ang = 1 - sin^2
 //   (curves: sin^2), r = 2 sin rhat - n(s) (curves: negated),
@@ -25,6 +27,14 @@
 // (the truncated corners) are skipped; the tap table is read through
 // the read-only cache, the same entry by every thread (a broadcast).
 //
+// Prepadded mode (the per-shard entry): the fields are (nz+2hw, ny+2hw,
+// nx+2hw) with hw-deep halos the caller filled (neighbouring blocks'
+// data, zeros beyond the global volume), and the receiver (z, y, x)
+// sits at (z+hw, y+hw, x+hw).  The only difference is where a tile is
+// staged from, so each receiver sums the same taps in the same order;
+// a halo plane beyond the volume adds exact zeros where the
+// single-device mode skips the plane, which leaves every sum unchanged.
+//
 // Sparse mode (the -tv-best default): __syncthreads_or tells the block
 // whether its staged saliency tile of a source plane holds any non-zero
 // value; if not, the plane's taps and its direction and mask loads are
@@ -46,7 +56,7 @@ __global__ void tv_votes_kernel(const float* __restrict__ sal,
                                 const float4* __restrict__ taps,
                                 float* __restrict__ out, int nz, int ny,
                                 int nx, int hw, int exponent, bool curves,
-                                bool want_den, bool sparse) {
+                                bool want_den, bool sparse, int off) {
   extern __shared__ float smem[];
   const int wl = 2 * hw + 1;
   const int sx = kTileX + 2 * hw;
@@ -65,19 +75,23 @@ __global__ void tv_votes_kernel(const float* __restrict__ sal,
   const int64_t nplane = static_cast<int64_t>(ny) * nx;
   const int64_t nvox = nplane * nz;
   const bool live = x < nx && y < ny;
+  // the fields: (fz, fy, fx), receiver (z, y, x) at (z, y, x) + off
+  const int fz = nz + 2 * off, fy = ny + 2 * off, fx = nx + 2 * off;
+  const int64_t fplane = static_cast<int64_t>(fy) * fx;
+  const int64_t fvox = fplane * fz;
 
   float acc[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   for (int tz = 0; tz < wl; ++tz) {
-    const int zs = z - (tz - hw);  // source plane of tap row tz
-    if (zs < 0 || zs >= nz) continue;  // uniform over the block
-    const int64_t pbase = zs * nplane;
+    const int zs = z - (tz - hw) + off;  // source plane of tap row tz
+    if (zs < 0 || zs >= fz) continue;  // uniform over the block
+    const int64_t pbase = zs * fplane;
 
     int nonzero = 0;
     for (int e = tid; e < plane; e += kTileX * kTileY) {
-      const int gy = y0 - hw + e / sx, gx = x0 - hw + e % sx;
+      const int gy = y0 - hw + off + e / sx, gx = x0 - hw + off + e % sx;
       float v = 0.f;
-      if (gy >= 0 && gy < ny && gx >= 0 && gx < nx) {
-        v = sal[pbase + static_cast<int64_t>(gy) * nx + gx];
+      if (gy >= 0 && gy < fy && gx >= 0 && gx < fx) {
+        v = sal[pbase + static_cast<int64_t>(gy) * fx + gx];
       }
       s_sal[e] = v;
       nonzero |= (v != 0.f);
@@ -87,13 +101,13 @@ __global__ void tv_votes_kernel(const float* __restrict__ sal,
     if (sparse && !occupied) continue;  // uniform over the block
 
     for (int e = tid; e < plane; e += kTileX * kTileY) {
-      const int gy = y0 - hw + e / sx, gx = x0 - hw + e % sx;
+      const int gy = y0 - hw + off + e / sx, gx = x0 - hw + off + e % sx;
       float a0 = 0.f, a1 = 0.f, a2 = 0.f, m = 0.f;
-      if (gy >= 0 && gy < ny && gx >= 0 && gx < nx) {
-        const int64_t g = pbase + static_cast<int64_t>(gy) * nx + gx;
+      if (gy >= 0 && gy < fy && gx >= 0 && gx < fx) {
+        const int64_t g = pbase + static_cast<int64_t>(gy) * fx + gx;
         a0 = nvec[g];
-        a1 = nvec[nvox + g];
-        a2 = nvec[2 * nvox + g];
+        a1 = nvec[fvox + g];
+        a2 = nvec[2 * fvox + g];
         if (want_den) m = mask[g];
       }
       s_n0[e] = a0;
@@ -161,13 +175,10 @@ __global__ void tv_votes_kernel(const float* __restrict__ sal,
   }
 }
 
-}  // namespace
-
-extern "C" int visfd_tv_votes(const void* sal, const void* nvec,
-                              const void* mask, const void* taps, void* out,
-                              int nz, int ny, int nx, int hw, int exponent,
-                              int curves, int want_den, int sparse,
-                              void* stream) {
+int launch_tv(const void* sal, const void* nvec, const void* mask,
+              const void* taps, void* out, int nz, int ny, int nx, int hw,
+              int exponent, int curves, int want_den, int sparse, int off,
+              void* stream) {
   const int n_fields = want_den ? 5 : 4;
   const size_t smem = sizeof(float) * n_fields * (kTileY + 2 * hw) *
                       (kTileX + 2 * hw);
@@ -184,6 +195,27 @@ extern "C" int visfd_tv_votes(const void* sal, const void* nvec,
       static_cast<const float*>(sal), static_cast<const float*>(nvec),
       static_cast<const float*>(mask), static_cast<const float4*>(taps),
       static_cast<float*>(out), nz, ny, nx, hw, exponent, curves != 0,
-      want_den != 0, sparse != 0);
+      want_den != 0, sparse != 0, off);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// (nz, ny, nx) is the output's shape in both entries; the prepadded
+// fields are (nz+2hw, ny+2hw, nx+2hw).
+extern "C" int visfd_tv_votes(const void* sal, const void* nvec,
+                              const void* mask, const void* taps, void* out,
+                              int nz, int ny, int nx, int hw, int exponent,
+                              int curves, int want_den, int sparse,
+                              void* stream) {
+  return launch_tv(sal, nvec, mask, taps, out, nz, ny, nx, hw, exponent,
+                   curves, want_den, sparse, 0, stream);
+}
+
+extern "C" int visfd_tv_votes_prepadded(
+    const void* sal_pad, const void* nvec_pad, const void* mask_pad,
+    const void* taps, void* out, int nz, int ny, int nx, int hw,
+    int exponent, int curves, int want_den, int sparse, void* stream) {
+  return launch_tv(sal_pad, nvec_pad, mask_pad, taps, out, nz, ny, nx, hw,
+                   exponent, curves, want_den, sparse, hw, stream);
 }

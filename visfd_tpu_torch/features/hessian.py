@@ -30,7 +30,8 @@ def _edge_clamp(result: torch.Tensor) -> torch.Tensor:
 
 def _sh(x: torch.Tensor, dz: int, dy: int, dx: int) -> torch.Tensor:
     """x shifted so out[p] = x[p + (dz,dy,dx)], wrapping (the wrapped
-    values never survive: _edge_clamp replaces the faces)."""
+    values never survive: _edge_clamp replaces the faces; the gradient's
+    shifts)."""
     return torch.roll(x, shifts=(-dz, -dy, -dx), dims=(0, 1, 2))
 
 
@@ -42,20 +43,32 @@ def gradient_fd(smoothed: torch.Tensor) -> torch.Tensor:
     return _edge_clamp(torch.stack([gx, gy, gz], dim=-1))
 
 
+def hessian_fd_padded(padded: torch.Tensor) -> torch.Tensor:
+    """The 3x3 central-difference Hessian, flattened to (Z, Y, X, 6)
+    [xx, yy, zz, xy, yz, xz], of the interior of a volume padded by one
+    voxel on every face (zeros, or the halo rows of a mesh block); no
+    edge clamp."""
+    nz, ny, nx = (d - 2 for d in padded.shape)
+
+    def sh(dz, dy, dx):  # out[p] = padded[p + 1 + (dz, dy, dx)]
+        return padded[1 + dz:1 + dz + nz, 1 + dy:1 + dy + ny,
+                      1 + dx:1 + dx + nx]
+
+    c = sh(0, 0, 0)
+    hxx = sh(0, 0, 1) + sh(0, 0, -1) - 2 * c
+    hyy = sh(0, 1, 0) + sh(0, -1, 0) - 2 * c
+    hzz = sh(1, 0, 0) + sh(-1, 0, 0) - 2 * c
+    hxy = 0.25 * (sh(0, 1, 1) + sh(0, -1, -1) - sh(0, -1, 1) - sh(0, 1, -1))
+    hyz = 0.25 * (sh(1, 1, 0) + sh(-1, -1, 0) - sh(-1, 1, 0) - sh(1, -1, 0))
+    hxz = 0.25 * (sh(1, 0, 1) + sh(-1, 0, -1) - sh(1, 0, -1) - sh(-1, 0, 1))
+    return torch.stack([hxx, hyy, hzz, hxy, hyz, hxz], dim=-1)
+
+
 def hessian_fd(smoothed: torch.Tensor) -> torch.Tensor:
     """3x3 central-difference Hessian flattened to (Z, Y, X, 6)
     [xx, yy, zz, xy, yz, xz]."""
-    c = smoothed
-    hxx = _sh(c, 0, 0, 1) + _sh(c, 0, 0, -1) - 2 * c
-    hyy = _sh(c, 0, 1, 0) + _sh(c, 0, -1, 0) - 2 * c
-    hzz = _sh(c, 1, 0, 0) + _sh(c, -1, 0, 0) - 2 * c
-    hxy = 0.25 * (_sh(c, 0, 1, 1) + _sh(c, 0, -1, -1)
-                  - _sh(c, 0, -1, 1) - _sh(c, 0, 1, -1))
-    hyz = 0.25 * (_sh(c, 1, 1, 0) + _sh(c, -1, -1, 0)
-                  - _sh(c, -1, 1, 0) - _sh(c, 1, -1, 0))
-    hxz = 0.25 * (_sh(c, 1, 0, 1) + _sh(c, -1, 0, -1)
-                  - _sh(c, 1, 0, -1) - _sh(c, -1, 0, 1))
-    return _edge_clamp(torch.stack([hxx, hyy, hzz, hxy, hyz, hxz], dim=-1))
+    padded = torch.nn.functional.pad(smoothed, (1,) * 6)
+    return _edge_clamp(hessian_fd_padded(padded))
 
 
 def calc_hessian(

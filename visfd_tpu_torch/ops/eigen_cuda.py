@@ -8,6 +8,11 @@ Port of ``visfd_tpu/ops/eigen_pallas.py``:
   principal eigensolve -> score (+ principal eigenvector), the faces
   replicating the nearest interior voxel.  Twin: ``hessian_fd`` ->
   ``principal_sym3`` -> score.
+* ``hessian_principal_prepadded``: the same on a block whose 1-deep
+  halos the caller filled (the per-shard mode of a ``-mesh`` run), with
+  no face clamp; ``clamp_faces`` replicates the global faces on the
+  assembled result.  Twin: ``hessian_fd_padded`` -> ``principal_sym3``
+  -> score.
 * ``sym3_score``: channel-major (6, Z, Y, X) symmetric field -> eigen
   score (+ principal eigenvector).  Twin: ``principal_sym3`` -> score.
 
@@ -22,7 +27,7 @@ from typing import Optional, Tuple
 import torch
 
 from visfd_tpu_torch import _cuda_build as cb
-from visfd_tpu_torch.features.hessian import hessian_fd
+from visfd_tpu_torch.features.hessian import hessian_fd, hessian_fd_padded
 from visfd_tpu_torch.linalg import sym3
 
 _FORMULAS = ("planar", "linear", "stick", "vals")
@@ -94,29 +99,88 @@ def hessian_principal(
     Returns (score, v): score is (Z, Y, X), or (3, Z, Y, X) eigenvalues
     for formula "vals"; v is the (3, Z, Y, X) principal eigenvector or
     None.  Every dim must be >= 3."""
-    n_out = _n_score_channels(formula) + (3 if want_v else 0)
     if blur.ndim != 3 or min(blur.shape) < 3:
         raise ValueError("hessian_principal needs a (Z, Y, X) volume with "
                          f"every dim >= 3, got {tuple(blur.shape)}")
     if blur.device.type == "cpu":
-        return _split(hessian_principal_plain(blur, sigma, decreasing,
-                                              formula, want_v),
-                      formula, want_v)
-    blur = _check_cuda("hessian_principal", blur, 3)
-    nz, ny, nx = blur.shape
-    out = torch.empty((n_out, nz, ny, nx), dtype=torch.float32,
-                      device=blur.device)
-    with torch.cuda.device(blur.device):
-        cb.check(cb.library().visfd_hessian_principal(
-            blur.data_ptr(), out.data_ptr(), nz, ny, nx,
-            float(sigma) * float(sigma), int(decreasing),
-            _FORMULAS.index(formula), int(want_v), cb.stream_of(blur)),
-            "visfd_hessian_principal")
-    hessian_principal.launches += 1
+        out = hessian_principal_plain(blur, sigma, decreasing, formula,
+                                      want_v)
+    else:
+        out = _hessian_cuda(hessian_principal, "visfd_hessian_principal",
+                            blur, blur.shape, sigma, decreasing, formula,
+                            want_v)
     return _split(out, formula, want_v)
 
 
 hessian_principal.launches = 0
+
+
+def _hessian_cuda(wrapper, entry, blur, out_shape, sigma, decreasing,
+                  formula, want_v) -> torch.Tensor:
+    """Launch the C ``entry`` on a CUDA tensor into a fresh (n_out,
+    *out_shape) block and count the launch on ``wrapper``."""
+    blur = _check_cuda(wrapper.__name__, blur, 3)
+    nz, ny, nx = out_shape
+    n_out = _n_score_channels(formula) + (3 if want_v else 0)
+    out = torch.empty((n_out, nz, ny, nx), dtype=torch.float32,
+                      device=blur.device)
+    with torch.cuda.device(blur.device):
+        cb.check(getattr(cb.library(), entry)(
+            blur.data_ptr(), out.data_ptr(), nz, ny, nx,
+            float(sigma) * float(sigma), int(decreasing),
+            _FORMULAS.index(formula), int(want_v), cb.stream_of(blur)),
+            entry)
+    wrapper.launches += 1
+    return out
+
+
+def hessian_principal_prepadded_plain(blur_pad: torch.Tensor, sigma: float,
+                                      decreasing: bool = True,
+                                      formula: str = "planar",
+                                      want_v: bool = True) -> torch.Tensor:
+    """The twin of the per-shard mode: the raw (n_out, Z, Y, X) block."""
+    hess = hessian_fd_padded(blur_pad) * (float(sigma) * float(sigma))
+    return _solve_plain(hess, decreasing, formula, want_v)
+
+
+def hessian_principal_prepadded(
+    blur_pad: torch.Tensor,       # (Z+2, Y+2, X+2), halos filled
+    sigma: float,
+    decreasing: bool = True,
+    formula: str = "planar",
+    want_v: bool = True,
+) -> torch.Tensor:
+    """Per-shard entry of a mesh run (``hessian_principal_pallas_
+    prepadded``): the fused FD Hessian + eigensolve + score over a block
+    whose 1-deep halos the caller filled, faces not clamped.  Returns
+    the raw channel-stacked (n_out, Z, Y, X) block; the caller
+    replicates the global faces on the assembled volume
+    (``clamp_faces``)."""
+    if blur_pad.ndim != 3 or min(blur_pad.shape) < 3:
+        raise ValueError("hessian_principal_prepadded needs a (Z+2, Y+2, "
+                         f"X+2) block, got {tuple(blur_pad.shape)}")
+    if blur_pad.device.type == "cpu":
+        return hessian_principal_prepadded_plain(blur_pad, sigma, decreasing,
+                                                 formula, want_v)
+    return _hessian_cuda(hessian_principal_prepadded,
+                         "visfd_hessian_principal_prepadded", blur_pad,
+                         tuple(d - 2 for d in blur_pad.shape), sigma,
+                         decreasing, formula, want_v)
+
+
+hessian_principal_prepadded.launches = 0
+
+
+def clamp_faces(arr: torch.Tensor) -> torch.Tensor:
+    """Replicate the nearest-interior value onto the faces of the
+    trailing (Z, Y, X) axes, in place: x, then y, then z, so the corners
+    take the fully clamped stencil (the same floats as
+    ``hessian_principal``).  Returns ``arr``."""
+    for axis in (-1, -2, -3):
+        n = arr.shape[axis]
+        arr.select(axis, 0).copy_(arr.select(axis, 1))
+        arr.select(axis, n - 1).copy_(arr.select(axis, n - 2))
+    return arr
 
 
 def sym3_score_plain(t6: torch.Tensor, decreasing: bool = True,

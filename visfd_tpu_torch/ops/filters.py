@@ -1,7 +1,9 @@
 """Gaussian blur with mask-aware normalisation.
 
 Port of ``apply_gauss`` from ``visfd_tpu/ops/filters.py``
-(reference ``ApplyGauss``, ``filter3d.hpp:1086-1319``).
+(reference ``ApplyGauss``, ``filter3d.hpp:1086-1319``).  A sharded
+volume (``parallel.mesh.ShardedVolume``) is blurred block by block with
+halo exchange, as GSPMD partitions the JAX package's blur.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch
 
 from visfd_tpu_torch.ops import kernels as K
 from visfd_tpu_torch.ops.conv import separable_conv3d
+from visfd_tpu_torch.parallel.mesh import ShardedVolume
 
 
 def _sigma3(sigma) -> Tuple[float, float, float]:
@@ -33,7 +36,8 @@ def apply_gauss(
     normalize: bool = True,
 ) -> torch.Tensor:
     """Separable (possibly anisotropic) Gaussian blur with mask-aware
-    normalisation; sigma in voxel units, per-axis order (x, y, z)."""
+    normalisation; sigma in voxel units, per-axis order (x, y, z).
+    ``x`` (and ``mask``) may be ShardedVolumes."""
     sx, sy, sz = _sigma3(sigma)
     if truncate_halfwidth is None:
         hwx, hwy, hwz = (K.gauss_halfwidth(s, truncate_ratio)
@@ -43,4 +47,10 @@ def apply_gauss(
     kx = K.gauss_kernel_1d(sx, hwx)
     ky = K.gauss_kernel_1d(sy, hwy)
     kz = K.gauss_kernel_1d(sz, hwz)
+    if isinstance(x, ShardedVolume):
+        # imported here: parallel.sharded imports features.hessian,
+        # which imports this module
+        from visfd_tpu_torch.parallel.sharded import separable_conv3d_sharded
+        return separable_conv3d_sharded(x, (kx, ky, kz), mask=mask,
+                                        normalize=normalize)
     return separable_conv3d(x, (kx, ky, kz), mask=mask, normalize=normalize)

@@ -2,9 +2,11 @@
 plain PyTorch twin, and the wrapper that picks one by the tensor's
 device.
 
-Port of ``visfd_tpu/ops/tv_pallas.py`` (``tv_dense_stick_pallas``) and
-of the accumulation core of ``visfd_tpu/features/tv.py``
-(``tv_tables``, ``tv_accumulate_padded``), which is the kernel's twin.
+Port of ``visfd_tpu/ops/tv_pallas.py`` (``tv_dense_stick_pallas`` and
+its per-shard entry ``tv_dense_stick_pallas_prepadded``, here
+``tv_votes`` and ``tv_votes_prepadded``) and of the accumulation core of
+``visfd_tpu/features/tv.py`` (``tv_tables``, ``tv_accumulate_padded``),
+which is the kernel's twin.
 Parity with ``class TV3D`` (``feature.hpp:1624-2483``): each receiver
 gathers ``sal(s) * w(j) * mask(s) * angle^(p/2) * outer(n_rot, n_rot)``
 from the sources s = i - j of the corner-truncated window of halfwidth
@@ -140,20 +142,31 @@ def _split_nvec(nvec, sal_shape, channel_major: Optional[bool]):
     return torch.movedim(nvec, -1, 0)
 
 
+def _tv_votes_prepadded_plain(sal_pad, nv_pad_cm, mask_pad, out_shape,
+                              sigma, exponent, detect_curves, truncate_ratio,
+                              want_denominator):
+    """The twin of the per-shard mode: raw (6|7, Z, Y, X) channel-major
+    vote accumulator over fields padded by hw on every face."""
+    w, rhat, hw = tv_tables(sigma, truncate_ratio)
+    m_pad = torch.ones_like(sal_pad) if mask_pad is None else mask_pad
+    dest, den = tv_accumulate_padded(
+        sal_pad, nv_pad_cm.movedim(0, -1), m_pad, tuple(out_shape), w, rhat,
+        exponent, detect_curves, hw, want_denominator)
+    chans = list(dest.unbind(-1)) + ([den] if want_denominator else [])
+    return torch.stack(chans)
+
+
 def _tv_votes_plain(sal, nv_cm, mask, sigma, exponent, detect_curves,
                     truncate_ratio, want_denominator):
     """The twin: raw (6|7, Z, Y, X) channel-major vote accumulator."""
-    w, rhat, hw = tv_tables(sigma, truncate_ratio)
+    _, _, hw = tv_tables(sigma, truncate_ratio)
     pad = (hw,) * 6
-    sal_pad = torch.nn.functional.pad(sal, pad)
     m = torch.ones_like(sal) if mask is None else mask
-    m_pad = torch.nn.functional.pad(m, pad)
-    n_pad = torch.nn.functional.pad(nv_cm, pad).movedim(0, -1)
-    dest, den = tv_accumulate_padded(
-        sal_pad, n_pad, m_pad, sal.shape, w, rhat, exponent,
-        detect_curves, hw, want_denominator)
-    chans = list(dest.unbind(-1)) + ([den] if want_denominator else [])
-    return torch.stack(chans)
+    return _tv_votes_prepadded_plain(
+        torch.nn.functional.pad(sal, pad),
+        torch.nn.functional.pad(nv_cm, pad),
+        torch.nn.functional.pad(m, pad), sal.shape, sigma, exponent,
+        detect_curves, truncate_ratio, want_denominator)
 
 
 def tv_votes(
@@ -187,25 +200,82 @@ def tv_votes(
                               bool(detect_curves), truncate_ratio,
                               bool(want_denominator))
     else:
-        out = _tv_votes_cuda(saliency, nv, mask_src, sigma, exponent,
+        out = _tv_votes_cuda(tv_votes, "visfd_tv_votes", saliency, nv,
+                             mask_src, saliency.shape, sigma, exponent,
                              bool(detect_curves), truncate_ratio,
                              bool(want_denominator), bool(sparse))
+    return _split_votes(out, want_denominator, channel_major)
+
+
+tv_votes.launches = 0
+
+
+def _split_votes(out, want_denominator, channel_major):
     den = out[6] if want_denominator else None
     vote = out[:6] if channel_major else torch.movedim(out[:6], 0, -1)
     return vote, den
 
 
-def _tv_votes_cuda(saliency, nv_cm, mask_src, sigma, exponent,
-                   detect_curves, truncate_ratio, want_denominator, sparse):
+def tv_votes_prepadded(
+    sal_pad: torch.Tensor,        # (Z+2hw, Y+2hw, X+2hw) float32
+    nvec_pad: torch.Tensor,       # (3, Z+2hw, ...) or (Z+2hw, ..., 3)
+    sigma: float,
+    out_shape: Tuple[int, int, int],
+    exponent: int = 4,
+    mask_pad: Optional[torch.Tensor] = None,
+    detect_curves: bool = False,
+    truncate_ratio: float = 2.5,
+    want_denominator: bool = False,
+    sparse: bool = False,
+    channel_major: bool = False,
+    nvec_channel_major: Optional[bool] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Per-shard entry of a mesh run (``tv_dense_stick_pallas_
+    prepadded``): voting over fields whose hw-deep halos the caller
+    filled (neighbouring blocks' data, zeros beyond the global volume).
+    ``mask_pad``, when given, is the haloed source mask (it gates votes
+    and feeds the denominator).  Returns what ``tv_votes`` returns for
+    the (Z, Y, X) = ``out_shape`` interior."""
+    exponent = int(exponent)
+    _, _, hw = tv_tables(sigma, truncate_ratio)
+    out_shape = tuple(int(n) for n in out_shape)
+    if tuple(sal_pad.shape) != tuple(n + 2 * hw for n in out_shape):
+        raise ValueError(f"tv_votes_prepadded: fields {tuple(sal_pad.shape)}"
+                         f" are not {out_shape} padded by hw={hw}")
+    nv = _split_nvec(nvec_pad, sal_pad.shape, nvec_channel_major)
+    if sal_pad.device.type == "cpu":
+        m = None if mask_pad is None else mask_pad.to(torch.float32)
+        out = _tv_votes_prepadded_plain(
+            sal_pad.to(torch.float32), nv.to(torch.float32), m, out_shape,
+            sigma, exponent, bool(detect_curves), truncate_ratio,
+            bool(want_denominator))
+    else:
+        out = _tv_votes_cuda(tv_votes_prepadded, "visfd_tv_votes_prepadded",
+                             sal_pad, nv, mask_pad, out_shape, sigma,
+                             exponent,
+                             bool(detect_curves), truncate_ratio,
+                             bool(want_denominator), bool(sparse))
+    return _split_votes(out, want_denominator, channel_major)
+
+
+tv_votes_prepadded.launches = 0
+
+
+def _tv_votes_cuda(wrapper, entry, saliency, nv_cm, mask_src, out_shape,
+                   sigma, exponent, detect_curves, truncate_ratio,
+                   want_denominator, sparse):
+    """Launch the C ``entry`` on CUDA tensors (the fields are
+    ``out_shape``, or ``out_shape`` padded by hw for the per-shard
+    entry) and count the launch on ``wrapper``."""
     if (saliency.device.type != "cuda" or saliency.ndim != 3
             or nv_cm.device != saliency.device):
-        raise ValueError(f"tv_votes takes (Z, Y, X) CPU or CUDA tensors, "
-                         f"got {tuple(saliency.shape)} on "
+        raise ValueError(f"{wrapper.__name__} takes (Z, Y, X) CPU or CUDA "
+                         f"tensors, got {tuple(saliency.shape)} on "
                          f"{saliency.device}, nvec on {nv_cm.device}")
     w, rhat, hw = tv_tables(sigma, truncate_ratio)
     if hw > MAX_KERNEL_HALFWIDTH:
-        raise ValueError(f"tv_votes: window halfwidth {hw} exceeds the "
-                         f"kernel's {MAX_KERNEL_HALFWIDTH}")
+        raise ValueError(f"{wrapper.__name__}: window halfwidth {hw} "
+                         f"exceeds the kernel's {MAX_KERNEL_HALFWIDTH}")
     dev = saliency.device
     sal = saliency.to(torch.float32)
     md = None
@@ -218,19 +288,16 @@ def _tv_votes_cuda(saliency, nv_cm, mask_src, sigma, exponent,
     nv_cm = nv_cm.to(torch.float32).contiguous()
     taps = torch.as_tensor(np.concatenate([w[:, None], rhat], axis=1),
                            device=dev).contiguous()
-    nz, ny, nx = sal.shape
+    nz, ny, nx = out_shape
     out = torch.empty((7 if want_denominator else 6, nz, ny, nx),
                       dtype=torch.float32, device=dev)
-    if sal.numel():
+    if out.numel():
         with torch.cuda.device(dev):
-            cb.check(cb.library().visfd_tv_votes(
+            cb.check(getattr(cb.library(), entry)(
                 sal.data_ptr(), nv_cm.data_ptr(),
                 md.data_ptr() if want_denominator else None,
                 taps.data_ptr(), out.data_ptr(), nz, ny, nx, hw, exponent,
                 int(detect_curves), int(want_denominator), int(sparse),
-                cb.stream_of(sal)), "visfd_tv_votes")
-        tv_votes.launches += 1
+                cb.stream_of(sal)), entry)
+        wrapper.launches += 1
     return out
-
-
-tv_votes.launches = 0

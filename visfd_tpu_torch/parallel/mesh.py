@@ -1,0 +1,173 @@
+"""Device grids and (z, y)-block-sharded volumes.
+
+Port of ``visfd_tpu/parallel/mesh.py`` for one process.  The JAX package
+partitions a (Z, Y, X) voxel grid over a named ("z", "y")
+``jax.sharding.Mesh`` and runs each stage under ``shard_map``; the port
+keeps the same partition explicitly: a ``Mesh`` is a (nz_m, ny_m) grid
+of ``torch.device``s and a ``ShardedVolume`` holds one (Z/nz_m, Y/ny_m,
+X) block per grid cell, on that cell's device.  X (the fastest axis)
+stays whole, so every stencil along X is local; stencils across a z or
+y block boundary take halo rows from the neighbouring blocks
+(``parallel.halo``).
+
+A grid may name one device more than once: the CPU tests build an
+8-block mesh on ``cpu`` and ``chip_smoke.py`` a (2, 2) mesh on one
+card.  What a block holds does not depend on where it lives.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Callable, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+AXIS_NAMES = ("z", "y")
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A (nz_m, ny_m) grid of torch devices with axis names ("z", "y")."""
+
+    devices: Tuple[Tuple[torch.device, ...], ...]
+    axis_names: Tuple[str, str] = AXIS_NAMES
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return len(self.devices), len(self.devices[0])
+
+
+def _grid_shape(n: int) -> Tuple[int, int]:
+    """n = nz * ny with nz >= ny and ny as large as possible (the JAX
+    package's near-square factorization: 4 -> (2, 2), 8 -> (4, 2))."""
+    best = (n, 1)
+    for ny in range(1, int(np.sqrt(n)) + 1):
+        if n % ny == 0:
+            best = (n // ny, ny)
+    return best
+
+
+def make_mesh(n_devices: Optional[int] = None,
+              devices: Optional[Sequence] = None) -> Mesh:
+    """A (z, y) mesh over ``devices`` (default: every visible CUDA card),
+    of which the first ``n_devices`` are used, like the JAX package's
+    ``devs[:n_devices]``.  ``devices`` may repeat a device."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("visfd_tpu_torch: no CUDA device is visible "
+                               "to build a -mesh over")
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    devs = [torch.device(d) for d in devices]
+    if n_devices is not None:
+        devs = devs[:n_devices]
+    if not devs:
+        raise ValueError("make_mesh needs at least one device")
+    nz, ny = _grid_shape(len(devs))
+    return Mesh(tuple(tuple(devs[iz * ny:(iz + 1) * ny]) for iz in range(nz)))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedVolume:
+    """A volume of global ``shape`` (C..., Z, Y, X) split into (z, y)
+    blocks: ``blocks[iz][iy]`` is (C..., Z/nz_m + 2 hz, Y/ny_m + 2 hy, X)
+    on ``mesh.devices[iz][iy]``, where ``halo = (hz, hy)`` counts the
+    neighbour rows a halo exchange added (0 for a plain partition).
+    The leading channel axes (``lead`` of them) are never split."""
+
+    blocks: Tuple[Tuple[torch.Tensor, ...], ...]
+    mesh: Mesh
+    shape: Tuple[int, ...]
+    halo: Tuple[int, int] = (0, 0)
+
+    @property
+    def lead(self) -> int:
+        return len(self.shape) - 3
+
+    @property
+    def block_shape(self) -> Tuple[int, int]:
+        """(bz, by): the rows of the global volume each block owns."""
+        nz_m, ny_m = self.mesh.shape
+        z, y = self.shape[self.lead:self.lead + 2]
+        return z // nz_m, y // ny_m
+
+    def cells(self):
+        """(iz, iy, block) for every block, z-major."""
+        for iz, row in enumerate(self.blocks):
+            for iy, b in enumerate(row):
+                yield iz, iy, b
+
+    def with_blocks(self, fn: Callable[[int, int, torch.Tensor],
+                                       torch.Tensor]) -> "ShardedVolume":
+        """A volume of the same partition whose blocks are
+        ``fn(iz, iy, block)`` (shapes then taken from the new blocks)."""
+        return from_blocks([[fn(iz, iy, b) for iy, b in enumerate(row)]
+                            for iz, row in enumerate(self.blocks)],
+                           self.mesh)
+
+
+def from_blocks(blocks, mesh: Mesh) -> ShardedVolume:
+    """A ShardedVolume from a [iz][iy] grid of un-haloed blocks."""
+    b0 = blocks[0][0]
+    lead = b0.ndim - 3
+    nz_m, ny_m = mesh.shape
+    shape = (tuple(b0.shape[:lead]) + (b0.shape[lead] * nz_m,
+                                       b0.shape[lead + 1] * ny_m)
+             + tuple(b0.shape[lead + 2:]))
+    return ShardedVolume(tuple(tuple(r) for r in blocks), mesh, shape)
+
+
+def divides(shape, mesh: Mesh, lead: int = 0) -> bool:
+    """True when the mesh splits the (Z, Y) axes of ``shape`` evenly."""
+    nz_m, ny_m = mesh.shape
+    return shape[lead] % nz_m == 0 and shape[lead + 1] % ny_m == 0
+
+
+def shard(x, mesh: Mesh, lead: int = 0) -> ShardedVolume:
+    """Split a (C..., Z, Y, X) numpy array or tensor into even (z, y)
+    blocks, each a fresh float32 copy on its mesh device (the
+    counterpart of ``device_put`` with ``grid_sharding``).  Raises if
+    the mesh does not divide Z and Y."""
+    if not divides(x.shape, mesh, lead):
+        raise ValueError(f"shard: {tuple(x.shape)} is not divisible by the "
+                         f"{mesh.shape} device grid")
+    nz_m, ny_m = mesh.shape
+    bz, by = x.shape[lead] // nz_m, x.shape[lead + 1] // ny_m
+    pre = (slice(None),) * lead
+    blocks = []
+    for iz, row in enumerate(mesh.devices):
+        slab = x[pre + (slice(iz * bz, (iz + 1) * bz),)]
+        if isinstance(slab, np.ndarray):
+            # one host-to-device copy of the z slab (contiguous for a
+            # volume), split into its y blocks on the device; the host
+            # array is only read (it may be a read-only file buffer)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                slab = torch.from_numpy(np.ascontiguousarray(slab))
+            slab = slab.to(row[0])
+        blocks.append([slab[pre + (slice(None),
+                                   slice(iy * by, (iy + 1) * by))].to(
+            dev, torch.float32, copy=True).contiguous()
+            for iy, dev in enumerate(row)])
+    return from_blocks(blocks, mesh)
+
+
+def bmap(fn: Callable, *args):
+    """``fn(*args)``, block by block when any argument is a
+    ShardedVolume (all such arguments share one partition; other
+    arguments pass through whole).  The elementwise steps of the CLI run
+    through this, sharded or not."""
+    vols = [a for a in args if isinstance(a, ShardedVolume)]
+    if not vols:
+        return fn(*args)
+    v0 = vols[0]
+    for v in vols:
+        if (v.mesh != v0.mesh or v.halo != (0, 0)
+                or v.block_shape != v0.block_shape):
+            raise ValueError("bmap: volumes of different partitions")
+
+    def cell(iz, iy, _):
+        return fn(*[a.blocks[iz][iy] if isinstance(a, ShardedVolume) else a
+                    for a in args])
+    return v0.with_blocks(cell)

@@ -1,0 +1,208 @@
+"""Sharded voxel pipelines: the per-shard kernels with halo exchange.
+
+Port of ``visfd_tpu/parallel/sharded.py`` for one process.  The volume
+is a ``ShardedVolume`` of (z, y) blocks (``parallel.mesh``); every
+stencil stage copies its halo rows from the neighbouring blocks
+(``parallel.halo``, outside the kernels) and runs the per-shard CUDA
+kernel on each haloed block, on the block's device.  Per voxel each
+kernel then sums the same terms in the same order as on one device, so
+the sharded results equal the single-device ones bit for bit on the
+card.
+
+* ``separable_conv3d_sharded``: the blur (what GSPMD makes of the JAX
+  package's blur on a sharded volume; its hand-written form is
+  ``_sharded_gauss``): ``blur3`` on each haloed block, the interior
+  kept, the edge normalisation from the global 1-D denominators.
+* ``hessian_principal_sharded``: 1-deep halos, the per-shard Hessian +
+  eigensolve kernel, the global faces clamped afterwards.
+* ``tv_accumulate_sharded``: hw-deep halos of saliency, direction and
+  mask, the per-shard voting kernel (dense or sparse).
+* ``sym3_score_sharded``: the vote-tensor eigen kernel on each block
+  (voxelwise: no halo).
+
+``make_membrane_step`` and the XLA-loop ``_sharded_tv`` of the JAX
+package are not ported: they need ``diagonalize_sym3``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from visfd_tpu_torch.ops.blur_cuda import blur3
+from visfd_tpu_torch.ops.conv import _ones_denom_1d
+from visfd_tpu_torch.ops.eigen_cuda import (
+    _n_score_channels, hessian_principal_prepadded, sym3_score)
+from visfd_tpu_torch.ops.tv_cuda import tv_tables, tv_votes_prepadded
+from visfd_tpu_torch.parallel.halo import halo_pad_2d
+from visfd_tpu_torch.parallel.mesh import (
+    Mesh, ShardedVolume, bmap, from_blocks)
+
+
+def grid_mesh_of(x) -> Optional[Mesh]:
+    """The mesh of a volume split into plain (z, y) blocks, or None for
+    anything else (the counterpart of ``features.tv._grid_mesh_of``;
+    ``parallel.mesh.shard`` makes even blocks only)."""
+    if isinstance(x, ShardedVolume) and x.halo == (0, 0):
+        return x.mesh
+    return None
+
+
+def _unzip(results, mesh: Mesh):
+    """A [iz][iy] grid of per-block tuples -> a tuple of volumes (None
+    where the blocks' entry is None)."""
+    n = len(results[0][0])
+    return tuple(
+        None if results[0][0][j] is None else
+        from_blocks([[r[j] for r in row] for row in results], mesh)
+        for j in range(n))
+
+
+def _blur3_sharded(vol: ShardedVolume, ks) -> ShardedVolume:
+    """``blur3`` of a sharded volume: each block haloed by the taps'
+    halfwidths along z and y (zeros beyond the volume, as the
+    single-device blur pads), blurred, and its interior kept."""
+    kx, ky, kz = ks
+    hz, hy = kz.shape[0] // 2, ky.shape[0] // 2
+    bz, by = vol.block_shape
+
+    def cell(iz, iy, b):
+        out = blur3(b, [k.to(b.device) for k in ks])
+        return out[hz:hz + bz, hy:hy + by].contiguous()
+    return halo_pad_2d(vol, hz, hy).with_blocks(cell)
+
+
+def separable_conv3d_sharded(
+    x: ShardedVolume,
+    kernels_xyz: Sequence,        # (kx, ky, kz) 1-D kernels
+    mask: Optional[ShardedVolume] = None,
+    normalize: bool = True,
+) -> ShardedVolume:
+    """``ops.conv.separable_conv3d`` on a sharded volume (same mask and
+    normalisation semantics)."""
+    ks = [torch.as_tensor(k, dtype=torch.float32) for k in kernels_xyz]
+    if mask is not None:
+        xm = bmap(torch.mul, x, mask)
+        if not normalize:
+            return _blur3_sharded(xm, ks)
+        out, den = _blur3_sharded(xm, ks), _blur3_sharded(mask, ks)
+
+        def divide(o, d):
+            ok = d > 0
+            return torch.where(ok, o / torch.where(ok, d, 1.0), o)
+        return bmap(divide, out, den)
+    out = _blur3_sharded(x, ks)
+    if not normalize:
+        return out
+    # the edge normalisation: the global per-axis denominators, sliced
+    kx, ky, kz = ks
+    bz, by = x.block_shape
+    nz, ny, nx = x.shape
+
+    def cell(iz, iy, b):
+        dev = b.device
+        dz = _ones_denom_1d(kz.to(dev), nz)[iz * bz:(iz + 1) * bz]
+        dy = _ones_denom_1d(ky.to(dev), ny)[iy * by:(iy + 1) * by]
+        dx = _ones_denom_1d(kx.to(dev), nx)
+        return b / (dz[:, None, None] * dy[None, :, None] * dx[None, None, :])
+    return out.with_blocks(cell)
+
+
+def _clamp_faces_sharded(vol: ShardedVolume) -> None:
+    """``ops.eigen_cuda.clamp_faces`` on a sharded (C, Z, Y, X) volume,
+    in place: x within each block, then y, then z across blocks (a face
+    row comes from the next block when a block is one row thick)."""
+    for _, _, b in vol.cells():
+        b[..., 0].copy_(b[..., 1])
+        b[..., -1].copy_(b[..., -2])
+    nz_m, ny_m = vol.mesh.shape
+    for axis in (1, 0):
+        t = vol.lead + axis
+        n, bs = vol.shape[t], vol.block_shape[axis]
+        for dst, src in ((0, 1), (n - 1, n - 2)):
+            for i_other in range(nz_m if axis == 1 else ny_m):
+                def block(g):
+                    i = g // bs
+                    return (vol.blocks[i_other][i] if axis == 1
+                            else vol.blocks[i][i_other]).select(t, g % bs)
+                block(dst).copy_(block(src))
+
+
+def hessian_principal_sharded(
+    blur: ShardedVolume,          # (Z, Y, X) blurred volume
+    sigma: float,
+    decreasing: bool = True,
+    formula: str = "planar",
+    want_v: bool = True,
+):
+    """Per-shard fused FD Hessian + principal eigensolve + score: 1-deep
+    halo exchange, ``hessian_principal_prepadded`` on each block, then
+    the global faces clamped on the assembled result.  Returns (score,
+    v) as ShardedVolumes with the conventions of
+    ``ops.eigen_cuda.hessian_principal``."""
+    def cell(iz, iy, b):
+        return hessian_principal_prepadded(
+            torch.nn.functional.pad(b, (1, 1)), sigma, decreasing, formula,
+            want_v)
+    out = halo_pad_2d(blur, 1, 1).with_blocks(cell)
+    _clamp_faces_sharded(out)
+    n_s = _n_score_channels(formula)
+    score = out.with_blocks(lambda iz, iy, b: b[0] if n_s == 1 else b[:n_s])
+    v = (out.with_blocks(lambda iz, iy, b: b[n_s:n_s + 3]) if want_v
+         else None)
+    return score, v
+
+
+def tv_accumulate_sharded(
+    saliency: ShardedVolume,      # (Z, Y, X)
+    nvec: ShardedVolume,          # channel-major (3, Z, Y, X)
+    mask_src: Optional[ShardedVolume],
+    sigma: float,
+    exponent: int,
+    detect_curves: bool,
+    truncate_ratio: float,
+    want_denominator: bool,
+    sparse: bool = False,
+):
+    """Raw (unnormalised) channel-major (6, Z, Y, X) votes of a sharded
+    volume, and the masked denominator when ``want_denominator``:
+    saliency, direction and mask haloed by the vote radius, x padded by
+    it, ``tv_votes_prepadded`` on each block.  Returns (vote, den|None)
+    as ShardedVolumes."""
+    _, _, hw = tv_tables(sigma, truncate_ratio)
+    bz, by = saliency.block_shape
+    out_shape = (bz, by, saliency.shape[2])
+
+    def haloed(vol):
+        return None if vol is None else halo_pad_2d(vol, hw, hw).blocks
+
+    sal_h, nv_h, m_h = haloed(saliency), haloed(nvec), haloed(mask_src)
+
+    def xpad(t):
+        return None if t is None else torch.nn.functional.pad(t, (hw, hw))
+
+    results = [[tv_votes_prepadded(
+        xpad(sal_h[iz][iy]), xpad(nv_h[iz][iy]), sigma, out_shape,
+        exponent=exponent,
+        mask_pad=None if m_h is None else xpad(m_h[iz][iy]),
+        detect_curves=detect_curves, truncate_ratio=truncate_ratio,
+        want_denominator=want_denominator, sparse=sparse,
+        channel_major=True, nvec_channel_major=True)
+        for iy in range(len(sal_h[0]))] for iz in range(len(sal_h))]
+    return _unzip(results, saliency.mesh)
+
+
+def sym3_score_sharded(
+    t6: ShardedVolume,            # (6, Z, Y, X) channel-major
+    decreasing: bool = True,
+    formula: str = "stick",
+    want_v: bool = False,
+):
+    """``ops.eigen_cuda.sym3_score`` on each block (voxelwise: no halo).
+    Returns (score, v|None) as ShardedVolumes."""
+    if t6.shape[0] != 6:
+        raise ValueError("t6 must be channel-major (6, Z, Y, X)")
+    results = [[sym3_score(b, decreasing, formula, want_v) for b in row]
+               for row in t6.blocks]
+    return _unzip(results, t6.mesh)
