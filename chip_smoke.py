@@ -7,33 +7,40 @@ Phases:
 
 0. the card: ``nvidia-smi`` name and power limit, torch and CUDA
    versions; refuses to run without CUDA;
-1. builds the four CUDA kernels from ``visfd_tpu_torch/csrc`` (nvcc);
+1. builds the CUDA kernels from ``visfd_tpu_torch/csrc`` (one nvcc per
+   source, all at once) and prints ptxas's registers, spills and stack
+   for every kernel instantiation;
 2. holds each kernel against its plain PyTorch twin on the card at the
    main path's shape, (Z, Y, X) = (256, 512, 512), and times both with
-   CUDA events; then (2b) every kernel option on small volumes whose
-   sides differ and are not multiples of a tile;
+   CUDA events; the voting kernel on the field the main path votes on
+   (the ``-tv-best 0.05`` share of a phantom's planar score, with its
+   occupancy at three granularities), on a 5%-occupied "planes" field
+   and on a 74%-occupied one; then (2b) every kernel option on small
+   volumes whose sides differ and are not multiples of a tile;
 3. drives ``filter_mrc -membrane … -tv …`` (the port's CLI) on a seeded
    512 x 512 x 256 (X x Y x Z) phantom tomogram, checks that every
    kernel was launched, that the output is finite, and that the
    top-scoring voxels lie on the phantom's membranes; it records each
-   kernel call of the run and holds its result against the twin on the
-   same inputs; then a smaller input that takes the auto-binning path;
+   kernel call of the run, prints the occupancy of the voting field it
+   captured, and holds each result against the twin on the same
+   inputs; then a smaller input that takes the auto-binning path;
 4. runs the CLI on an 112 x 96 x 80 phantom on the card and on the CPU
    (dense voting, ``-tv-best 1.0``) and compares the two outputs;
 5. the ``-mesh`` path on a (2, 2) mesh (all four blocks on ``cuda:0``
    when one card is visible, spread over the cards otherwise):
    (5a) the per-shard modes of the Hessian and voting kernels against
    their plain twins on one block of 5c's shape with its halos, timed
-   beside the single-device kernels on as many voxels, then the sharded
-   wrappers on small volumes whose blocks are 1, 2 and 3 voxels thick
-   under halos deeper than a block; (5b) every sharded stage (blur,
-   Hessian, the ``-tv-best`` threshold, sparse and dense voting, vote
-   score) against its single-device counterpart at (Z, Y, X) = (512,
-   1024, 1024), counting the voxels whose bits differ (0 expected), and
-   the halo copies timed on their own; (5c) ``filter_mrc -membrane …
-   -tv … -mesh 4`` and the same command without ``-mesh`` on a seeded
-   1024 x 1024 x 512 phantom: identical outputs, each per-shard kernel
-   launched once per block, both walls and the peak device memory.
+   beside the single-device kernels on as many voxels (the voting on the
+   block's own ``-tv-best 0.05`` field), then the sharded wrappers on
+   small volumes whose blocks are 1, 2 and 3 voxels thick under halos
+   deeper than a block; (5b) every sharded stage (blur, Hessian, the
+   ``-tv-best`` threshold, sparse and dense voting, vote score) against
+   its single-device counterpart at (Z, Y, X) = (512, 1024, 1024),
+   counting the voxels whose bits differ (0 expected), and the halo
+   copies timed on their own; (5c) ``filter_mrc -membrane … -tv …
+   -mesh 4`` and the same command without ``-mesh`` on a seeded 1024 x
+   1024 x 512 phantom: identical outputs, each per-shard kernel launched
+   once per block, both walls and the peak device memory.
 
 A failed check is reported where it happens and the later phases still
 run; the script then exits non-zero without a result line.  On success
@@ -117,6 +124,51 @@ def tv_work(sal, n_out_vox, n_field_vox, hw, ratio, sigma, want_den):
     return nbytes, nnz * taps * per_tap
 
 
+def occupancy(sal, hw):
+    """Shares of a voting field that are non-zero at three granularities:
+    voxels; (32 x 8 receiver tile, source plane) pairs whose haloed
+    (32 + 2hw) x (8 + 2hw) tile holds a non-zero source (what a kernel
+    that skips whole source planes per tile can skip); (32-receiver warp
+    row, source row) pairs whose 32 + 2hw sources hold one (the rows a
+    warp of csrc/tv.cu walks)."""
+    import torch
+    nz = (sal != 0).float()[None]
+    k = 2 * hw + 1
+    pool = torch.nn.functional.max_pool3d
+    dil_x = pool(nz, (1, 1, k), 1, (0, 0, hw))
+    tile = pool(pool(dil_x, (1, k, 1), 1, (0, hw, 0)), (1, 8, 32),
+                (1, 8, 32), ceil_mode=True)
+    row = pool(dil_x, (1, 1, 32), (1, 1, 32), ceil_mode=True)
+    return {"voxels": float(nz.mean()), "tile_planes": float(tile.mean()),
+            "warp_rows": float(row.mean())}
+
+
+def _tv_best_field(shape, seed, dev):
+    """(saliency, direction (3, Z, Y, X)) that ``filter_mrc -membrane
+    minima 3 -tv-best 0.05`` votes on: the top 5% of a seeded phantom's
+    planar score (blur and Hessian kernels, sort threshold, as in 5b)."""
+    import torch
+    from visfd_tpu_torch.ops import eigen_cuda as EC
+    from visfd_tpu_torch.ops import filters as F
+    from visfd_tpu_torch.parallel.reduce import fraction_threshold
+    from visfd_tpu_torch.utils.phantom import membrane_phantom
+    sigma = 3.0 / np.sqrt(3.0)
+    vol, _ = membrane_phantom(shape, seed=seed, thickness=3.0, device=dev)
+    blur = F.apply_gauss(vol, sigma, truncate_halfwidth=(4,) * 3)
+    del vol
+    score, v = EC.hessian_principal(blur, sigma)
+    del blur
+    thr = fraction_threshold(score, 0.05)
+    return torch.where(score < thr, 0.0, score), v
+
+
+def _occupancy_line(label, sal, hw):
+    o = occupancy(sal, hw)
+    return (f"  {label} occupancy (hw {hw}): voxels {o['voxels']:.4f}, "
+            f"(32x8 tile, source plane) pairs {o['tile_planes']:.4f}, "
+            f"(warp row, source row) pairs {o['warp_rows']:.4f}")
+
+
 class Checks:
     """Collects pass/fail of every check; a failure does not stop the
     later phases, it only decides the exit code."""
@@ -176,6 +228,19 @@ def cuda_ms(fn, reps):
     return float(np.median(times))
 
 
+def timed_ms(fn):
+    """(fn(), milliseconds of that one call on the card, CUDA events):
+    for the plain twins, which take seconds and are checked anyway."""
+    import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
 # ---------------------------------------------------------------------------
 
 def phase_card():
@@ -200,6 +265,35 @@ def phase_card():
     return card
 
 
+def _ptxas_report(text):
+    """One line per compiled kernel from ptxas's -v output: the kernel
+    (with its template arguments), registers, spills and stack."""
+    import re
+    lines, name, stack = [], None, ""
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            # Itanium mangling: <length><name>, then I<args>E if a template
+            mangled, name = m.group(1), m.group(1)
+            for d in re.finditer(r"(?=(\d{1,3}))", mangled):
+                end = d.start() + len(d.group(1))
+                cand = mangled[end:end + int(d.group(1))]
+                if cand.endswith("_kernel") and cand.isidentifier():
+                    name, rest = cand, mangled[end + len(cand):]
+            if name != mangled and rest.startswith("I"):
+                args = re.findall(r"L([ib])(\d+)E", rest[:rest.find("EE") + 2])
+                name += "<" + ", ".join(
+                    ("true" if v == "1" else "false") if t == "b" else v
+                    for t, v in args) + ">"
+        elif "spill" in ln:
+            stack = ln.split("info    :")[-1].strip()
+        elif "Used" in ln and name:
+            regs = re.search(r"Used (\d+) registers", ln).group(1)
+            lines.append(f"{name}: {regs} registers; {stack}")
+            name = None
+    return lines
+
+
 def phase_build(chk):
     from visfd_tpu_torch import _cuda_build as cb
     print("== phase 1: build", flush=True)
@@ -207,12 +301,12 @@ def phase_build(chk):
     so = cb.build()
     cb.library()
     print(f"built {os.path.relpath(so, ROOT)} in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{time.perf_counter() - t0:.1f} s (one nvcc per source, in "
+          f"parallel)")
     log = so.with_suffix(".log")
     if log.exists():
-        for ln in log.read_text().splitlines():
-            if "Used" in ln or "spill" in ln or "Compiling entry" in ln:
-                print("  ptxas:", ln.split("info    :")[-1].strip())
+        for ln in _ptxas_report(log.read_text()):
+            print("  ptxas:", ln)
     chk.check(True, "kernels built and loaded")
     return so
 
@@ -367,39 +461,50 @@ def phase_kernels(chk, card, shape=MAIN_SHAPE, dev="cuda"):
     nv = torch.randn((3,) + tuple(shape), generator=gen, device=dev)
     nv = nv / nv.norm(dim=0, keepdim=True)
     del zz, yy, xx, u
+    # the main path's field: what -tv-best 0.05 leaves of the phantom's
+    # planar score, with its own directions
+    sal_real, nv_real = _tv_best_field(shape, SEED, dev)
+    print(_occupancy_line("-tv-best 0.05 field", sal_real, hw))
     kw = dict(exponent=4, truncate_ratio=ratio, channel_major=True,
               nvec_channel_major=True)
-    cases = [("dense", sal_dense, dict()),
-             ("masked+denominator", sal_dense,
+    cases = [("dense", sal_dense, nv, dict()),
+             ("masked+denominator", sal_dense, nv,
               dict(mask_src=m, want_denominator=True)),
-             ("curves", sal_dense, dict(detect_curves=True)),
-             ("planes 5%", sal_planes, dict())]
-    for label, sal, extra in cases:
-        got, got_den = tv_votes(sal, nv, sigma, **kw, **extra)
-        raw = _tv_twin(sal, nv, sigma, ratio, **extra)
+             ("curves", sal_dense, nv, dict(detect_curves=True)),
+             ("planes 5%", sal_planes, nv, dict()),
+             ("-tv-best 0.05", sal_real, nv_real, dict())]
+    twin_ms = {}
+    for label, sal, nvc, extra in cases:
+        got, got_den = tv_votes(sal, nvc, sigma, **kw, **extra)
+        raw, twin_ms[label] = timed_ms(lambda: _tv_twin(
+            sal, nvc, sigma, ratio, **extra))
         record("tv_votes", _tv_check(chk, f"tv_votes hw=3 e=4 {label}",
                                      got, got_den, raw))
         del raw
-        sp, sp_den = tv_votes(sal, nv, sigma, sparse=True, **kw, **extra)
+        sp, sp_den = tv_votes(sal, nvc, sigma, sparse=True, **kw, **extra)
         _sparse_equals_dense(chk, f"tv_votes {label}", sp, sp_den, got,
                              got_den)
         del got, got_den, sp, sp_den
-    occ = float((sal_planes != 0).float().mean())
-    ms = cuda_ms(lambda: tv_votes(sal_planes, nv, sigma, **kw), 5)
-    ms_sp = cuda_ms(lambda: tv_votes(sal_planes, nv, sigma, sparse=True,
-                                     **kw), 5)
-    pms = cuda_ms(lambda: _tv_twin(sal_planes, nv, sigma, ratio), 2)
-    # the main path's mode (sparse) on its kind of field (-tv-best 0.05)
-    b = bound_ms(*tv_work(sal_planes, nvox, nvox, hw, ratio, sigma, False))
+    timed = {}
+    for label, sal, nvc in (("-tv-best 0.05", sal_real, nv_real),
+                            ("planes", sal_planes, nv),
+                            ("dense", sal_dense, nv)):
+        ms = cuda_ms(lambda: tv_votes(sal, nvc, sigma, **kw), 5)
+        ms_sp = cuda_ms(lambda: tv_votes(sal, nvc, sigma, sparse=True,
+                                         **kw), 5)
+        b = bound_ms(*tv_work(sal, nvox, nvox, hw, ratio, sigma, False))
+        timed[label] = (ms, ms_sp, b)
+        print(f"  tv_votes hw=3 e=4, {label} field "
+              f"({float((sal != 0).float().mean()):.4f} occupied): dense "
+              f"kernel {ms:.3f} ms, sparse kernel {ms_sp:.3f} ms, bound "
+              f"{b[0]:.3f} ms ({b[1]}) [{card}]", flush=True)
+    # the kernels line: the main path's mode (sparse) on its field
+    _, ms_sp, b = timed["-tv-best 0.05"]
+    pms = twin_ms["-tv-best 0.05"]
     record("tv_votes", 0.0, ms_sp, pms, b)
-    ms_dd = cuda_ms(lambda: tv_votes(sal_dense, nv, sigma, **kw), 5)
-    b_dd = bound_ms(*tv_work(sal_dense, nvox, nvox, hw, ratio, sigma, False))
-    print(f"  tv_votes hw=3 e=4 planes field ({occ:.4f} occupied): dense "
-          f"kernel {ms:.3f} ms, sparse kernel {ms_sp:.3f} ms, plain "
-          f"{pms:.3f} ms, bound {b[0]:.3f} ms ({b[1]}); dense field "
-          f"({float((sal_dense != 0).float().mean()):.4f} occupied): dense "
-          f"kernel {ms_dd:.3f} ms, bound {b_dd[0]:.3f} ms ({b_dd[1]}) "
+    print(f"  tv_votes plain twin on the -tv-best 0.05 field {pms:.3f} ms "
           f"[{card}]")
+    del sal_real, nv_real, sal_planes
 
     # --- sym3 score of the vote tensor: stick, with v -------------------
     # (the twin on the CPU copy, as for the Hessian kernel)
@@ -631,6 +736,7 @@ def _check_captured(chk, calls):
 
 def phase_main_path(chk, card, tmp, shapes=(MAIN_SHAPE, (128, 256, 256)),
                     dev="cuda"):
+    import inspect
     import torch
     from visfd_tpu_torch.cli import filter_mrc as TFM
     from visfd_tpu_torch.io import mrc
@@ -685,6 +791,14 @@ def phase_main_path(chk, card, tmp, shapes=(MAIN_SHAPE, (128, 256, 256)),
                                   dist, near)
         chk.check(share >= 0.9, f"top 0.5% voxels within {near} voxels of "
                                 f"a phantom membrane: {share:.4f}")
+        for name, fn, a_, kw_, _ in cap.calls:
+            if name == "tv_votes":
+                a = inspect.signature(fn).bind(*a_, **kw_)
+                a.apply_defaults()
+                hw = tv_cuda.tv_tables(a.arguments["sigma"],
+                                       a.arguments["truncate_ratio"])[2]
+                print(_occupancy_line("the CLI's voting field",
+                                      a.arguments["saliency"], hw))
         for k, e in _check_captured(chk, cap.calls).items():
             errs[k] = max(errs.get(k, 0.0), e)
         del dist, cap
@@ -809,7 +923,7 @@ def phase_mesh_kernels(chk, card, dev="cuda"):
     del bp, inner
 
     # --- voting on hw-haloed fields: masked + denominator, then the
-    #     main path's sparse mode on a 5%-planes field ------------------
+    #     main path's sparse mode on the -tv-best 0.05 field of a block -
     hw = 3
     sigma = hw / np.sqrt(2.0) + 1e-6
     ratio = float(np.sqrt(2.0))
@@ -832,26 +946,46 @@ def phase_mesh_kernels(chk, card, dev="cuda"):
                                     want_denominator=True, sparse=True, **kw)
     _sparse_equals_dense(chk, "tv_votes_prepadded", sp, sp_den, got,
                          got_den)
-    del got, got_den, sp, sp_den, m
+    del got, got_den, sp, sp_den, m, sal
     z = torch.arange(pshape[0], device=dev)[:, None, None]
     planes = torch.where(z % 20 == 0, u, 0.0)
-    del u, sal
-    ms = cuda_ms(lambda: tv_votes_prepadded(planes, nv, sigma, block,
+    del u
+    ms_pl = cuda_ms(lambda: tv_votes_prepadded(planes, nv, sigma, block,
+                                               sparse=True, **kw), 5)
+    print(f"  tv_votes_prepadded hw=3 e=4 sparse, planes field "
+          f"({float((planes != 0).float().mean()):.4f} occupied): kernel "
+          f"{ms_pl:.3f} ms [{card}]")
+    del planes, nv
+    # the block's -tv-best 0.05 field: a phantom of the haloed block's
+    # shape, so its halos hold sources as a mesh block's do
+    real, real_v = _tv_best_field(pshape, SEED + 50, dev)
+    print(_occupancy_line("block's -tv-best 0.05 field", real, hw))
+    raw, pms = timed_ms(lambda: _tv_votes_prepadded_plain(
+        real, real_v, None, block, sigma, 4, False, ratio, False))
+    got, _ = tv_votes_prepadded(real, real_v, sigma, block, sparse=True,
+                                **kw)
+    err_tv = max(err_tv, _tv_check(
+        chk, f"tv_votes_prepadded sparse, -tv-best 0.05 field {block}",
+        got, None, raw))
+    del raw
+    dense, _ = tv_votes_prepadded(real, real_v, sigma, block, **kw)
+    _sparse_equals_dense(chk, "tv_votes_prepadded -tv-best 0.05", got, None,
+                         dense, None)
+    del got, dense
+    ms = cuda_ms(lambda: tv_votes_prepadded(real, real_v, sigma, block,
                                             sparse=True, **kw), 5)
-    inner_s = planes[hw:-hw, hw:-hw, hw:-hw].contiguous()
-    inner_n = nv[:, hw:-hw, hw:-hw, hw:-hw].contiguous()
+    inner_s = real[hw:-hw, hw:-hw, hw:-hw].contiguous()
+    inner_n = real_v[:, hw:-hw, hw:-hw, hw:-hw].contiguous()
     ms1 = cuda_ms(lambda: tv_votes(inner_s, inner_n, sigma, sparse=True,
                                    **kw), 5)
     del inner_s, inner_n
-    pms = cuda_ms(lambda: _tv_votes_prepadded_plain(
-        planes, nv, None, block, sigma, 4, False, ratio, False), 1)
-    b = bound_ms(*tv_work(planes, nvox, planes.numel(), hw, ratio, sigma,
+    b = bound_ms(*tv_work(real, nvox, real.numel(), hw, ratio, sigma,
                           False))
     stats["tv_votes_prepadded"] = dict(
         max_abs_err=err_tv, ms=ms, plain_ms=pms, bound_ms=b[0],
         bound_by=b[1], library_ms=None)
-    print(f"  tv_votes_prepadded hw=3 e=4 sparse, planes field "
-          f"({float((planes != 0).float().mean()):.4f} occupied): kernel "
+    print(f"  tv_votes_prepadded hw=3 e=4 sparse, -tv-best 0.05 field "
+          f"({float((real != 0).float().mean()):.4f} occupied): kernel "
           f"{ms:.3f} ms, single-device kernel on the same voxels "
           f"{ms1:.3f} ms, plain {pms:.3f} ms, bound {b[0]:.3f} ms ({b[1]}) "
           f"[{card}]", flush=True)

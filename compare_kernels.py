@@ -1,0 +1,161 @@
+#!/usr/bin/env python3
+"""Time the voting and blur kernels of this checkout, and optionally of
+another checkout, on one NVIDIA GPU, on the same inputs.
+
+    python3 compare_kernels.py [--other DIR] [--reps N]
+
+The inputs are built once, with code both checkouts share unchanged
+(the phantom, the plain blur twin, the Hessian kernel, the sort
+threshold), so every checkout sees the same bits:
+
+- ``real``: the ``-tv-best 0.05`` field of the phantom's planar score at
+  the main path's (Z, Y, X) = (256, 512, 512), the field the CLI's
+  sparse voting gets;
+- ``planes``: the 5%-occupied field of every 20th z plane;
+- ``dense``: a 74%-occupied random field;
+- ``block``: the ``-tv-best 0.05`` field of a (262, 518, 1030) phantom,
+  one (256, 512, 1024) block of the -mesh run with its 3-deep halos.
+
+Each checkout's ``visfd_tpu_torch`` is imported in turn (the other, this,
+this, the other) and times ``blur3`` at hw 4, ``tv_votes`` (hw 3,
+exponent 4) dense and sparse on every field, and
+``tv_votes_prepadded`` sparse on the block, with CUDA events (median of
+``--reps``).  It prints one JSON line per turn, then the fields'
+occupancy.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+from chip_smoke import cuda_ms, occupancy
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SEED = 1234
+MAIN_SHAPE = (256, 512, 512)
+BLOCK = (256, 512, 1024)
+HW = 3
+
+
+def load(root):
+    """Import the ``visfd_tpu_torch`` package of checkout ``root``,
+    dropping any other checkout's modules first."""
+    for name in [m for m in sys.modules
+                 if m.split(".")[0] == "visfd_tpu_torch"]:
+        del sys.modules[name]
+    sys.path[:] = [root] + [p for p in sys.path if p not in (ROOT, root)]
+    import visfd_tpu_torch  # noqa: F401
+    return visfd_tpu_torch
+
+
+def tv_best_field(shape, seed, dev):
+    """(saliency, direction (3, Z, Y, X)) as the CLI's ``-membrane
+    minima 3 -tv-best 0.05`` leaves them, from the plain blur twin."""
+    import torch
+    from visfd_tpu_torch.ops import blur_cuda, eigen_cuda as EC
+    from visfd_tpu_torch.ops import kernels as K
+    from visfd_tpu_torch.parallel.reduce import fraction_threshold
+    from visfd_tpu_torch.utils.phantom import membrane_phantom
+    sigma = 3.0 / np.sqrt(3.0)
+    vol, _ = membrane_phantom(shape, seed=seed, thickness=3.0, device=dev)
+    ks = [torch.as_tensor(K.gauss_kernel_1d(sigma, 4), device=dev)] * 3
+    blur = blur_cuda.blur3_plain(vol, ks)
+    del vol
+    score, v = EC.hessian_principal(blur, sigma)
+    del blur
+    thr = fraction_threshold(score, 0.05)
+    return torch.where(score < thr, 0.0, score), v
+
+
+def build_inputs(dev):
+    import torch
+    zz, yy, xx = torch.meshgrid(*[torch.arange(n, device=dev,
+                                               dtype=torch.float32)
+                                  for n in MAIN_SHAPE], indexing="ij")
+    u = torch.sin(zz * 12.9898 + yy * 78.233 + xx * 37.719).abs()
+    planes = torch.where(zz.long() % 20 == 0, u, 0.0)
+    dense = torch.where(u > 0.4, u, 0.0)
+    del zz, yy, xx, u
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    nv = torch.randn((3,) + MAIN_SHAPE, generator=gen, device=dev)
+    nv = nv / nv.norm(dim=0, keepdim=True)
+    x = torch.randn(MAIN_SHAPE, generator=gen, device=dev)
+    real, real_v = tv_best_field(MAIN_SHAPE, SEED, dev)
+    pshape = tuple(n + 2 * HW for n in BLOCK)
+    block, block_v = tv_best_field(pshape, SEED + 50, dev)
+    return dict(x=x, nv=nv, planes=planes, dense=dense, real=real,
+                real_v=real_v, block=block, block_v=block_v)
+
+
+def time_checkout(inp, reps):
+    import torch
+    from visfd_tpu_torch.ops import blur_cuda
+    from visfd_tpu_torch.ops import kernels as K
+    from visfd_tpu_torch.ops.tv_cuda import tv_votes, tv_votes_prepadded
+    dev = inp["x"].device
+    out = {}
+    ks = [torch.as_tensor(K.gauss_kernel_1d(1.73, 4), device=dev)
+          for _ in range(3)]
+    ks[0] = ks[0] * torch.linspace(0.5, 1.5, 9, device=dev)
+    out["blur3 hw 4"] = cuda_ms(lambda: blur_cuda.blur3(inp["x"], ks),
+                                4 * reps)
+    sigma = HW / np.sqrt(2.0) + 1e-6
+    kw = dict(exponent=4, truncate_ratio=float(np.sqrt(2.0)),
+              channel_major=True, nvec_channel_major=True)
+    for name, sal, nv in (("real", inp["real"], inp["real_v"]),
+                          ("planes", inp["planes"], inp["nv"]),
+                          ("dense", inp["dense"], inp["nv"])):
+        for sparse in (True, False):
+            out[f"tv_votes {name} {'sparse' if sparse else 'dense'}"] = \
+                cuda_ms(lambda: tv_votes(sal, nv, sigma, sparse=sparse,
+                                         **kw), reps)
+    out["tv_votes_prepadded block sparse"] = cuda_ms(
+        lambda: tv_votes_prepadded(inp["block"], inp["block_v"], sigma,
+                                   BLOCK, sparse=True, **kw), reps)
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", help="root of another checkout to time in "
+                                    "turns with this one")
+    ap.add_argument("--reps", type=int, default=5)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("compare_kernels: needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
+    print(f"card: {card}", flush=True)
+    other = os.path.abspath(args.other) if args.other else None
+    load(ROOT)
+    dev = torch.device("cuda")
+    inp = build_inputs(dev)
+    occ = {k: occupancy(inp[k], HW) for k in ("real", "planes", "dense",
+                                              "block")}
+    turns = [other, ROOT, ROOT, other] if other else [ROOT, ROOT]
+    for root in turns:
+        load(root)
+        from visfd_tpu_torch import _cuda_build as cb
+        cb.library()
+        t = time_checkout(inp, args.reps)
+        label = "this" if root == ROOT else "other"
+        print(json.dumps({"checkout": label, "root": root, "ms": t}),
+              flush=True)
+    for k, v in occ.items():
+        print(f"occupancy {k}: {json.dumps(v)}")
+    print(f"[{card}]")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -15,9 +15,11 @@ import torch
 import jax.numpy as jnp
 
 from visfd_tpu.features import tv as JTV
+from visfd_tpu.ops import kernels as JK
 from visfd_tpu.ops.tv_pallas import tv_dense_stick_pallas
 from visfd_tpu_torch.convert import to_numpy, to_torch
 from visfd_tpu_torch.features import tv as TTV
+from visfd_tpu_torch.ops import tv_cuda as TC
 from visfd_tpu_torch.ops.tv_cuda import tv_votes
 
 SHAPE = (12, 20, 36)
@@ -51,6 +53,15 @@ def _fields(seed, occupancy=0.6, shape=SHAPE):
     v /= np.linalg.norm(v, axis=-1, keepdims=True)
     mask = (rng.uniform(size=shape) > 0.25).astype(np.float32)
     return sal, v, mask
+
+
+def _top5(seed, shape=SHAPE):
+    """A scattered field as -tv-best 0.05 leaves one: the top 5% of a
+    random score, zero elsewhere."""
+    rng = np.random.default_rng(seed)
+    score = rng.normal(size=shape).astype(np.float32)
+    return np.where(score >= np.quantile(score, 0.95), score, 0.0).astype(
+        np.float32)
 
 
 def _close(got, want):
@@ -138,10 +149,80 @@ def test_tv_accumulate_padded_matches_jax():
         _close(to_numpy(g), wnt)
 
 
+# (sigma, truncate ratio) -> the window halfwidths 1, 3, 8 and 9
+TAP_CASES = {"hw1": (0.9, 1.5), "hw3": (1.5, 2.5), "hw8": (3.3, 2.5),
+             "hw9": (3.7, 2.5)}
+
+
+@pytest.mark.parametrize("case", list(TAP_CASES))
+def test_tap_list_is_the_nonzero_taps_in_raster_order(case):
+    """The kernel's compact tap list: the non-zero-weight entries of
+    tv_tables, bit for bit and in its raster order, at the positions
+    the Pallas kernel does not skip (its gen_gauss_kernel_3d table)."""
+    sigma, ratio = TAP_CASES[case]
+    offs, w, rhat, hw = TC.tap_list(sigma, ratio)
+    assert hw == int(case[2:])
+    w_all, rhat_all, _ = TC.tv_tables(sigma, ratio)
+    keep = np.flatnonzero(w_all)
+    np.testing.assert_array_equal(w, w_all[keep])
+    np.testing.assert_array_equal(rhat, rhat_all[keep])
+    assert w.dtype == rhat.dtype == np.float32 and (w != 0).all()
+    w_len = 2 * hw + 1
+    raster = ((offs[:, 0] + hw) * w_len + offs[:, 1] + hw) * w_len \
+        + offs[:, 2] + hw
+    np.testing.assert_array_equal(raster, keep)
+    ker = JK.gen_gauss_kernel_3d((sigma,) * 3, 2.0, (hw,) * 3)
+    np.testing.assert_array_equal(np.flatnonzero(ker.ravel() != 0), keep)
+    # the kernel's tables walk the same taps: per tap plane, the window
+    # bitmask's set bits in order give the compact indices of the plane
+    taps, meta, _ = TC._kernel_tables(sigma, ratio)
+    np.testing.assert_array_equal(taps[:, 0], w)
+    np.testing.assert_array_equal(taps[:, 1:], rhat)
+    n_words = (w_len * w_len + 31) // 32
+    pstart = meta[:w_len + 1]
+    wmask = meta[w_len + 1:w_len + 1 + w_len * n_words].view(
+        np.uint32).reshape(w_len, n_words)
+    wbase = meta[w_len + 1 + w_len * n_words:
+                 w_len + 1 + 2 * w_len * n_words].reshape(w_len, n_words)
+    toff = meta[w_len + 1 + 2 * w_len * n_words:]
+    assert len(toff) == len(w) and pstart[-1] == len(w)
+    for tz in range(w_len):
+        walked = []
+        for wd in range(n_words):
+            bits = int(wmask[tz, wd])
+            for b in range(32):
+                if bits >> b & 1:
+                    k = wbase[tz, wd] + bin(bits & ((1 << b) - 1)).count("1")
+                    ty, tx = divmod(32 * wd + b, w_len)
+                    assert tuple(offs[k] + hw) == (tz, ty, tx)
+                    assert toff[k] == ((2 * hw - ty) * (32 + 2 * hw)
+                                       + 2 * hw - tx)
+                    walked.append(k)
+        assert walked == list(range(pstart[tz], pstart[tz + 1]))
+
+
+@pytest.mark.parametrize("want_den", [False, True])
+def test_smem_plan_fits_up_to_the_cap(want_den):
+    """The voting kernel's shared-memory plan fits a Hopper block for
+    every halfwidth up to MAX_KERNEL_HALFWIDTH, and the cap is where the
+    plan (or the kernel's 128-bit staged row) stops."""
+    for hw in range(TC.MAX_KERNEL_HALFWIDTH + 1):
+        rows, nbytes = TC.smem_plan(hw, want_den)
+        ry, sx = rows + 2 * hw, 32 + 2 * hw
+        assert rows in (8, 4, 2, 1) and sx <= 128
+        assert nbytes == (2 * ry * sx * (20 if want_den else 16)
+                          + ry * 16) <= 232448
+    assert TC.smem_plan(TC.MAX_KERNEL_HALFWIDTH + 1, True) is None
+    assert TC.smem_plan(3, want_den)[0] == 8
+
+
+@pytest.mark.parametrize("field", ["uniform", "top5"])
 @pytest.mark.parametrize("case", list(CASES))
-def test_tv_cuda_kernel_matches_twin(cuda, case):
+def test_tv_cuda_kernel_matches_twin(cuda, case, field):
     hw, e, curves, masked, _, cm = CASES[case]
     sal, v, mask = _fields(21, occupancy=0.05)
+    if field == "top5":
+        sal = _top5(22)
     nv = np.moveaxis(v, -1, 0) if cm else v
     kw = dict(exponent=e, detect_curves=curves, truncate_ratio=RATIO,
               want_denominator=masked, channel_major=True,

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` at first use into one
-shared library with a plain C interface, which is loaded with
-``ctypes``.  The library is cached under ``visfd_tpu_torch/_build/``
-by a hash of the sources and the flags, so a second process reuses it.
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc``, all started
+together, at first use; the objects are linked into one shared library
+with a plain C interface, which is loaded with ``ctypes``.  The library
+is cached under ``visfd_tpu_torch/_build/`` by a hash of the sources
+and the flags, so a second process reuses it.
 Nothing here runs when the module is imported.
 
 Each C entry point launches on the stream it is given, does not
@@ -30,7 +31,7 @@ BUILD_DIR = _HERE / "_build"
 # --use_fast_math: IEEE division and sqrt keep the kernels within the
 # tolerances the tests hold them to (FMA contraction stays on).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,8 +40,9 @@ _F = ctypes.c_float
 
 # C signature of every entry point: name -> argtypes (all return int).
 _SIGNATURES = {
-    # in, out, taps, hw, nz, ny, nx, axis, stream
-    "visfd_conv1d_axis": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # in, out, taps (kz | ky | kx), hx, hy, hz, nz, ny, nx, rows, smem,
+    # stream
+    "visfd_blur3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # blur, out, nz, ny, nx, sigma^2, decreasing, formula, want_v, stream
     "visfd_hessian_principal": [_P, _P, _I, _I, _I, _F, _I, _I, _I, _P],
     # blur_pad (nz+2, ny+2, nx+2), out, nz, ny, nx, sigma^2, decreasing,
@@ -49,13 +51,11 @@ _SIGNATURES = {
                                           _I, _P],
     # t6, out, nvox, decreasing, formula, want_v, stream
     "visfd_sym3_score": [_P, _P, _I64, _I, _I, _I, _P],
-    # sal, nvec, mask, taps, out, nz, ny, nx, hw, exponent, curves,
-    # want_den, sparse, stream
-    "visfd_tv_votes": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                       _I, _P],
+    # sal, nvec, mask, taps, meta, out, nz, ny, nx, hw, rows, smem,
+    # exponent, curves, want_den, sparse, stream
+    "visfd_tv_votes": [_P] * 6 + [_I] * 10 + [_P],
     # the same, the fields (nz+2hw, ny+2hw, nx+2hw) with filled halos
-    "visfd_tv_votes_prepadded": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                 _I, _I, _P],
+    "visfd_tv_votes_prepadded": [_P] * 6 + [_I] * 10 + [_P],
 }
 
 
@@ -83,27 +83,37 @@ def library_path() -> pathlib.Path:
 
 def build() -> pathlib.Path:
     """Compile the kernels unless a library for these sources exists.
-    Raises with nvcc's output when the compile fails.  ptxas's register
+    Raises with nvcc's output when a compile fails.  ptxas's register
     and spill report goes to ``<library>.log``."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    try:
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        nvcc = _nvcc()
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs = []
+        for cmd, p in procs:
+            text = p.communicate()[0]
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed (exit {p.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{text}")
+            logs.append(text)
+        lib = os.path.join(tmp, "lib.so")
+        cmd = [nvcc, "-shared", "-o", lib, *objs]
         r = subprocess.run(cmd, capture_output=True, text=True)
         if r.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {r.returncode}):\n{' '.join(cmd)}\n"
-                f"{r.stdout}{r.stderr}")
-        so.with_suffix(".log").write_text(r.stdout + r.stderr)
-        os.replace(tmp, so)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed (exit {r.returncode}):\n"
+                               f"{' '.join(cmd)}\n{r.stdout}{r.stderr}")
+        so.with_suffix(".log").write_text("".join(logs))
+        os.replace(lib, so)
     return so
 
 

@@ -4,8 +4,9 @@ device.
 
 Port of ``visfd_tpu/ops/blur_pallas.py`` (``blur3_pallas``).  Semantics
 of ``ops.conv._sep3``: true convolution g[i] = sum_j h[j] f[i-j] along
-z, then y, then x, with zero padding; the 1-D kernels are runtime
-values of odd length.
+each axis, with zero padding; the 1-D kernels are runtime values of odd
+length.  The twin sums z, then y, then x; the kernel x, then y, then z
+(the TPU kernel y, x, z), which the tolerances cover.
 """
 
 from __future__ import annotations
@@ -46,10 +47,43 @@ def blur3_plain(x: torch.Tensor, kernels_xyz: Sequence) -> torch.Tensor:
     return conv1d_axis(out, kx, axis=2)
 
 
+SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
+
+
+_STAGES = 3        # staged input planes (csrc/blur.cu)
+_MAX_FIXED = 8     # one halfwidth 1-8 on every axis is compile-time
+_FIXED_ROWS = 8    # its rows of threads, 4 output rows each
+
+
+def smem_plan(hx: int, hy: int, hz: int):
+    """(rows of threads, dynamic shared-memory bytes) of the fused kernel
+    for the halfwidths (hx, hy, hz), or None when no tile fits: three
+    staged (tile rows + 2hy) x (32 + 2hx) input planes and two planes of
+    x-blurred rows, all float32.  One halfwidth 1-8 on every axis takes
+    8 rows of threads and a 32-row tile; other widths one output row
+    per thread, the most of 8, 4, 2, 1 rows that fit beside a ring of
+    2hz+1 xy-blurred planes of the tile and the taps."""
+    def nbytes(tile_rows, ring):
+        ry, sx = tile_rows + 2 * hy, 32 + 2 * hx
+        extra = (2 * hz + 1) * 32 * tile_rows + 2 * (hx + hy + hz) + 3
+        return 4 * (_STAGES * ry * sx + 2 * 32 * ry + (extra if ring else 0))
+    if hx == hy == hz and 1 <= hx <= _MAX_FIXED:
+        return _FIXED_ROWS, nbytes(4 * _FIXED_ROWS, False)
+    for rows in (8, 4, 2, 1):
+        if nbytes(rows, True) <= SMEM_LIMIT:
+            return rows, nbytes(rows, True)
+    return None
+
+
+# the largest halfwidth (on every axis) whose tile fits
+MAX_KERNEL_HALFWIDTH = max(h for h in range(1, 256)
+                           if smem_plan(h, h, h) is not None)
+
+
 def blur3(x: torch.Tensor, kernels_xyz: Sequence) -> torch.Tensor:
     """Separable 3-D convolution of a (Z, Y, X) float32 volume with the
     1-D kernels (kx, ky, kz).  A CPU tensor takes the plain twin; a
-    CUDA tensor launches ``csrc/blur.cu`` (one launch per axis)."""
+    CUDA tensor launches ``csrc/blur.cu`` (one fused launch)."""
     ks = [torch.as_tensor(k, dtype=torch.float32, device=x.device)
           for k in kernels_xyz]
     if any(k.ndim != 1 or k.shape[0] % 2 == 0 for k in ks):
@@ -60,26 +94,25 @@ def blur3(x: torch.Tensor, kernels_xyz: Sequence) -> torch.Tensor:
         raise ValueError(f"blur3 takes a (Z, Y, X) float32 CPU or CUDA "
                          f"tensor, got {x.dtype} {tuple(x.shape)} on "
                          f"{x.device}")
-    x = x.contiguous()
-    if x.numel() == 0:
-        return torch.empty_like(x)
-    lib = cb.library()
-    nz, ny, nx = x.shape
     kx, ky, kz = ks
-    taps = torch.cat([kz, ky, kx]).contiguous()
-    tmp = torch.empty_like(x)
+    hx, hy, hz = (k.shape[0] // 2 for k in ks)
+    plan = smem_plan(hx, hy, hz)
+    if plan is None:
+        raise ValueError(f"blur3: halfwidths (x, y, z) = {(hx, hy, hz)} "
+                         f"exceed the kernel's shared memory")
+    if x.shape[1] * x.shape[2] >= 2 ** 31:
+        raise ValueError(f"blur3: a plane of {tuple(x.shape[1:])} voxels "
+                         f"exceeds the kernel's 32-bit plane offsets")
+    x = x.contiguous()
     out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    nz, ny, nx = x.shape
+    taps = torch.cat([kz, ky, kx]).contiguous()
     with torch.cuda.device(x.device):
-        stream = cb.stream_of(x)
-        # z: x -> out, y: out -> tmp, x: tmp -> out
-        off = 0
-        for axis, k, src, dst in ((0, kz, x, out), (1, ky, out, tmp),
-                                  (2, kx, tmp, out)):
-            cb.check(lib.visfd_conv1d_axis(
-                src.data_ptr(), dst.data_ptr(),
-                taps.data_ptr() + 4 * off, k.shape[0] // 2,
-                nz, ny, nx, axis, stream), "visfd_conv1d_axis")
-            off += k.shape[0]
+        cb.check(cb.library().visfd_blur3(
+            x.data_ptr(), out.data_ptr(), taps.data_ptr(), hx, hy, hz,
+            nz, ny, nx, *plan, cb.stream_of(x)), "visfd_blur3")
     blur3.launches += 1
     return out
 

@@ -25,9 +25,29 @@ import torch
 from visfd_tpu_torch import _cuda_build as cb
 from visfd_tpu_torch.ops import kernels as K
 
-# the kernel stages 5 haloed (8 + 2hw) x (32 + 2hw) float tiles in the
-# 227 KB of shared memory a block may use on Hopper
-MAX_KERNEL_HALFWIDTH = 43
+SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
+# csrc/tv.cu's kMaxHw: a staged row's non-zero mask has 128 bits for its
+# 32 + 2hw sources, and a thread reads its 2hw+1 of them as one word
+_ROW_MASK_MAX_HW = 30
+
+
+def smem_plan(hw: int, want_denominator: bool):
+    """(tile rows, dynamic shared-memory bytes) of the voting kernel, or
+    None when no tile fits: two staged planes of (rows + 2hw) x (32 +
+    2hw) float4 sources (sal, n0, n1, n2), the float mask planes with
+    the denominator, and each staged row's 128-bit non-zero mask for the
+    plane being voted.  The rows are the most of 8, 4, 2, 1 that fit."""
+    for rows in (8, 4, 2, 1):
+        ry, sx = rows + 2 * hw, 32 + 2 * hw
+        nbytes = 2 * ry * sx * (20 if want_denominator else 16) + ry * 16
+        if nbytes <= SMEM_LIMIT:
+            return rows, nbytes
+    return None
+
+
+# the largest window halfwidth the kernel takes, in every mode
+MAX_KERNEL_HALFWIDTH = max(hw for hw in range(_ROW_MASK_MAX_HW + 1)
+                           if smem_plan(hw, True) is not None)
 
 
 def tv_tables(sigma: float, truncate_ratio: float = 2.5):
@@ -43,6 +63,46 @@ def tv_tables(sigma: float, truncate_ratio: float = 2.5):
     rhat = np.stack([offs[:, 2], offs[:, 1], offs[:, 0]],
                     axis=-1).astype(np.float32) / length[:, None]
     return w, rhat, hw
+
+
+def tap_list(sigma: float, truncate_ratio: float = 2.5):
+    """The compact tap list: the taps of non-zero weight, in the raster
+    (jz, jy, jx) order of ``tv_tables``.  Returns (offsets (K, 3) int32
+    as (dz, dy, dx) = (jz, jy, jx), weights (K,), unit displacements
+    (K, 3) in (x, y, z), hw), the float32 entries of ``tv_tables``."""
+    w, rhat, hw = tv_tables(sigma, truncate_ratio)
+    keep = np.flatnonzero(w)
+    w_len = 2 * hw + 1
+    offs = np.stack(np.unravel_index(keep, (w_len,) * 3), axis=-1) - hw
+    return offs.astype(np.int32), w[keep], rhat[keep], hw
+
+
+def _kernel_tables(sigma: float, truncate_ratio: float):
+    """(taps (K, 4) float32 rows (w, rx, ry, rz), meta int32, hw): what
+    ``csrc/tv.cu`` reads.  meta holds, for the W = 2hw+1 tap planes tz:
+    the compact index where each plane starts (W+1); a bitmask over the
+    W x W raster window (ty, tx) of the taps of each plane, in 32-bit
+    words (W x NW); the compact index of each word's first tap (W x NW);
+    and each tap's offset in the staged plane from its receiver's
+    source at (ty, tx) = (2hw, 2hw) (K)."""
+    offs, w, rhat, hw = tap_list(sigma, truncate_ratio)
+    w_len = 2 * hw + 1
+    n_words = (w_len * w_len + 31) // 32
+    tz, ty, tx = (offs + hw).T.astype(np.int64)
+    pos = ty * w_len + tx
+    pstart = np.searchsorted(tz, np.arange(w_len + 1))
+    wmask = np.zeros((w_len, n_words), np.uint32)
+    np.bitwise_or.at(wmask, (tz, pos // 32),
+                     (np.uint32(1) << (pos % 32).astype(np.uint32)))
+    key = tz * (32 * n_words) + pos
+    starts = (np.arange(w_len)[:, None] * (32 * n_words)
+              + 32 * np.arange(n_words)[None, :])
+    wbase = np.searchsorted(key, starts.ravel())
+    toff = (2 * hw - ty) * (32 + 2 * hw) + (2 * hw - tx)
+    meta = np.concatenate([pstart, wmask.view(np.int32).ravel(), wbase,
+                           toff]).astype(np.int32)
+    taps = np.concatenate([w[:, None], rhat], axis=1).astype(np.float32)
+    return taps, meta, hw
 
 
 def tv_accumulate_padded(
@@ -187,10 +247,9 @@ def tv_votes(
     normalisation denominator (Z, Y, X) when ``want_denominator``.
 
     A CPU tensor takes the plain twin; a CUDA tensor launches
-    ``csrc/tv.cu``.  ``sparse`` skips, per block of receivers, the
-    source planes whose saliency is all zero; it equals the dense mode
-    bit for bit (the twin has no sparse mode: it would add the same
-    zeros)."""
+    ``csrc/tv.cu``.  ``sparse`` visits only the sources of non-zero
+    saliency; it equals the dense mode bit for bit (the twin has no
+    sparse mode: it would add the same zeros)."""
     exponent = int(exponent)
     nv = _split_nvec(nvec, saliency.shape, nvec_channel_major)
     if saliency.device.type == "cpu":
@@ -272,10 +331,11 @@ def _tv_votes_cuda(wrapper, entry, saliency, nv_cm, mask_src, out_shape,
         raise ValueError(f"{wrapper.__name__} takes (Z, Y, X) CPU or CUDA "
                          f"tensors, got {tuple(saliency.shape)} on "
                          f"{saliency.device}, nvec on {nv_cm.device}")
-    w, rhat, hw = tv_tables(sigma, truncate_ratio)
+    taps, meta, hw = _kernel_tables(sigma, truncate_ratio)
     if hw > MAX_KERNEL_HALFWIDTH:
         raise ValueError(f"{wrapper.__name__}: window halfwidth {hw} "
                          f"exceeds the kernel's {MAX_KERNEL_HALFWIDTH}")
+    rows, smem = smem_plan(hw, want_denominator)
     dev = saliency.device
     sal = saliency.to(torch.float32)
     md = None
@@ -286,8 +346,8 @@ def _tv_votes_cuda(wrapper, entry, saliency, nv_cm, mask_src, out_shape,
     if want_denominator and md is None:
         md = torch.ones_like(sal)
     nv_cm = nv_cm.to(torch.float32).contiguous()
-    taps = torch.as_tensor(np.concatenate([w[:, None], rhat], axis=1),
-                           device=dev).contiguous()
+    taps = torch.as_tensor(taps, device=dev)
+    meta = torch.as_tensor(meta, device=dev)
     nz, ny, nx = out_shape
     out = torch.empty((7 if want_denominator else 6, nz, ny, nx),
                       dtype=torch.float32, device=dev)
@@ -296,8 +356,9 @@ def _tv_votes_cuda(wrapper, entry, saliency, nv_cm, mask_src, out_shape,
             cb.check(getattr(cb.library(), entry)(
                 sal.data_ptr(), nv_cm.data_ptr(),
                 md.data_ptr() if want_denominator else None,
-                taps.data_ptr(), out.data_ptr(), nz, ny, nx, hw, exponent,
-                int(detect_curves), int(want_denominator), int(sparse),
-                cb.stream_of(sal)), entry)
+                taps.data_ptr(), meta.data_ptr(), out.data_ptr(), nz, ny,
+                nx, hw, rows, smem, exponent, int(detect_curves),
+                int(want_denominator), int(sparse), cb.stream_of(sal)),
+                entry)
         wrapper.launches += 1
     return out
