@@ -9,14 +9,18 @@ Phases:
    versions; refuses to run without CUDA;
 1. builds the CUDA kernels from ``visfd_tpu_torch/csrc`` (one nvcc per
    source, all at once) and prints ptxas's registers, spills and stack
-   for every kernel instantiation;
+   for every kernel instantiation, and the SASS instructions per voxel
+   of each eigen kernel instantiation (``cuobjdump``, when the toolkit
+   has it);
 2. holds each kernel against its plain PyTorch twin on the card at the
    main path's shape, (Z, Y, X) = (256, 512, 512), and times both with
    CUDA events; the voting kernel on the field the main path votes on
    (the ``-tv-best 0.05`` share of a phantom's planar score, with its
    occupancy at three granularities), on a 5%-occupied "planes" field
    and on a 74%-occupied one; then (2b) every kernel option on small
-   volumes whose sides differ and are not multiples of a tile;
+   volumes whose sides differ and are not multiples of a tile, the
+   per-shard Hessian entry on a strided view of a block with its halo
+   slabs among them;
 3. drives ``filter_mrc -membrane … -tv …`` (the port's CLI) on a seeded
    512 x 512 x 256 (X x Y x Z) phantom tomogram, checks that every
    kernel was launched, that the output is finite, and that the
@@ -28,16 +32,18 @@ Phases:
    (dense voting, ``-tv-best 1.0``) and compares the two outputs;
 5. the ``-mesh`` path on a (2, 2) mesh (all four blocks on ``cuda:0``
    when one card is visible, spread over the cards otherwise):
-   (5a) the per-shard modes of the Hessian and voting kernels against
-   their plain twins on one block of 5c's shape with its halos, timed
-   beside the single-device kernels on as many voxels (the voting on the
-   block's own ``-tv-best 0.05`` field), then the sharded wrappers on
-   small volumes whose blocks are 1, 2 and 3 voxels thick under halos
-   deeper than a block; (5b) every sharded stage (blur, Hessian, the
-   ``-tv-best`` threshold, sparse and dense voting, vote score) against
-   its single-device counterpart at (Z, Y, X) = (512, 1024, 1024),
-   counting the voxels whose bits differ (0 expected), and the halo
-   copies timed on their own; (5c) ``filter_mrc -membrane … -tv …
+   (5a) the per-shard modes of the Hessian (a block read in place beside
+   its four halo slabs) and voting kernels against their plain twins on
+   one block of 5c's shape, timed beside the single-device kernels on as
+   many voxels (the voting on the block's own ``-tv-best 0.05`` field),
+   then the sharded wrappers on small volumes whose blocks are 1, 2 and
+   3 voxels thick under halos deeper than a block; (5b) every sharded
+   stage (blur, Hessian, the ``-tv-best`` threshold, sparse and dense
+   voting, vote score) against its single-device counterpart at (Z, Y,
+   X) = (512, 1024, 1024), counting the voxels whose bits differ (0
+   expected), with the Hessian stage's sharded/single ratio and the vote
+   score's share of its bound, and the halo copies timed on their own;
+   (5c) ``filter_mrc -membrane … -tv …
    -mesh 4`` and the same command without ``-mesh`` on a seeded 1024 x
    1024 x 512 phantom: identical outputs, each per-shard kernel launched
    once per block, both walls and the peak device memory.
@@ -80,8 +86,8 @@ KERNELS = {
                  "visfd_tpu/ops/tv_pallas.py:80"),
     "sym3_score": ("visfd_tpu_torch/csrc/eigen.cu",
                    "visfd_tpu/ops/eigen_pallas.py:418"),
-    "hessian_principal_prepadded": ("visfd_tpu_torch/csrc/eigen.cu",
-                                    "visfd_tpu/ops/eigen_pallas.py:352"),
+    "hessian_principal_block": ("visfd_tpu_torch/csrc/eigen.cu",
+                                "visfd_tpu/ops/eigen_pallas.py:352"),
     "tv_votes_prepadded": ("visfd_tpu_torch/csrc/tv.cu",
                            "visfd_tpu/ops/tv_pallas.py:423"),
 }
@@ -265,6 +271,24 @@ def phase_card():
     return card
 
 
+def _kernel_name(mangled):
+    """``name<template args>`` of a mangled kernel symbol (Itanium
+    mangling: <length><name>, then I<args>E if a template)."""
+    import re
+    name, rest = mangled, ""
+    for d in re.finditer(r"(?=(\d{1,3}))", mangled):
+        end = d.start() + len(d.group(1))
+        cand = mangled[end:end + int(d.group(1))]
+        if cand.endswith("_kernel") and cand.isidentifier():
+            name, rest = cand, mangled[end + len(cand):]
+    if name != mangled and rest.startswith("I"):
+        args = re.findall(r"L([ib])(\d+)E", rest[:rest.find("EE") + 2])
+        name += "<" + ", ".join(
+            ("true" if v == "1" else "false") if t == "b" else v
+            for t, v in args) + ">"
+    return name
+
+
 def _ptxas_report(text):
     """One line per compiled kernel from ptxas's -v output: the kernel
     (with its template arguments), registers, spills and stack."""
@@ -273,18 +297,7 @@ def _ptxas_report(text):
     for ln in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            # Itanium mangling: <length><name>, then I<args>E if a template
-            mangled, name = m.group(1), m.group(1)
-            for d in re.finditer(r"(?=(\d{1,3}))", mangled):
-                end = d.start() + len(d.group(1))
-                cand = mangled[end:end + int(d.group(1))]
-                if cand.endswith("_kernel") and cand.isidentifier():
-                    name, rest = cand, mangled[end + len(cand):]
-            if name != mangled and rest.startswith("I"):
-                args = re.findall(r"L([ib])(\d+)E", rest[:rest.find("EE") + 2])
-                name += "<" + ", ".join(
-                    ("true" if v == "1" else "false") if t == "b" else v
-                    for t, v in args) + ">"
+            name = _kernel_name(m.group(1))
         elif "spill" in ln:
             stack = ln.split("info    :")[-1].strip()
         elif "Used" in ln and name:
@@ -292,6 +305,125 @@ def _ptxas_report(text):
             lines.append(f"{name}: {regs} registers; {stack}")
             name = None
     return lines
+
+
+def sass_functions(so):
+    """{kernel name: [(address, instruction)]} from ``cuobjdump -sass``
+    of the built library, or None when the toolkit has no cuobjdump."""
+    import re
+    import shutil
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.isfile(exe):
+        return None
+    text = subprocess.run([exe, "-sass", str(so)], capture_output=True,
+                          text=True, timeout=300).stdout
+    funcs, cur = {}, None
+    for ln in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", ln)
+        if m:
+            cur = funcs.setdefault(_kernel_name(m.group(1)), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", ln)
+        if m and cur is not None and not m.group(2).startswith("NOP"):
+            cur.append((int(m.group(1), 16), m.group(2).strip()))
+    return funcs
+
+
+def _opcode(op):
+    """The opcode of a SASS instruction: its first word after the
+    predicate, if any."""
+    return next(w for w in op.split() if not w.startswith("@"))
+
+
+def _hot_path(main):
+    """The addresses one pass through a kernel's main body executes when
+    no slow path is taken: a forward conditional branch is taken when
+    the code it skips holds a CALL or local memory outside the ranges
+    its own forward branches skip (the math library's slow paths), else
+    not; each loop body runs once."""
+    import re
+    addr = [a for a, _ in main]
+    pos = {a: i for i, a in enumerate(addr)}
+
+    def target(op):
+        m = re.match(r"(@!?U?P\w+\s+)?BRA(\.\S+)?\s+(?:\S+,\s*)?"
+                     r"(0x[0-9a-f]+)$", op)
+        return (int(m.group(3), 16), m.group(1) is not None) if m else None
+
+    def rare(i, j):
+        while i < j:
+            op = main[i][1]
+            if _opcode(op).startswith(("CALL", "LDL", "STL")):
+                return True
+            t = target(op)
+            nested = t and t[1] and i < pos.get(t[0], -1) <= j
+            i = pos[t[0]] if nested else i + 1
+        return False
+    seen, i = [], 0
+    while i < len(main) and len(seen) < 4 * len(main):
+        a, op = main[i]
+        seen.append(a)
+        if op.split()[0] == "EXIT":
+            break
+        t = target(op)
+        if t is None or t[0] not in pos or t[0] < a:
+            i += 1                          # a loop's end: leave it
+        elif not t[1] or rare(i + 1, pos[t[0]]):
+            i = pos[t[0]]
+        else:
+            i += 1
+    return seen, [target(op) for _, op in main]
+
+
+def sass_counts(ins, voxels_per_pass):
+    """Static counts of one kernel's SASS: instructions in all; the main
+    body (up to the first unconditional EXIT; the math library's slow
+    paths lie after it or are skipped by ``_hot_path``); per voxel, the
+    instructions of the hot path (``_hot_path``), or for a kernel that
+    loops over passes of ``voxels_per_pass`` voxels, those of the
+    outermost loop's body over those voxels; MUFU, CALL and
+    local-memory (LDL/STL) instructions."""
+    main = []
+    for a, op in ins:
+        main.append((a, op))
+        if op.split()[0] == "EXIT":
+            break
+    hot, targets = _hot_path(main)
+    loops = [(t[0], a) for (a, _), t in zip(main, targets)
+             if t and t[0] < a and a in hot]
+    per_voxel = len(hot)
+    if loops:
+        lo, hi = min(loops, key=lambda l: l[0] - l[1])
+        per_voxel = sum(lo <= a <= hi for a in hot) / voxels_per_pass
+    ops = [_opcode(op) for _, op in ins]
+    return {"all": len(ins), "main": len(main), "hot": len(hot),
+            "per_voxel": per_voxel,
+            "mufu": sum(o.startswith("MUFU") for o in ops),
+            "call": sum(o.startswith("CALL") for o in ops),
+            "local": sum(o.startswith(("LDL", "STL")) for o in ops)}
+
+
+def _eigen_sass(so):
+    """{eigen kernel instantiation: its SASS counts (``sass_counts``) as
+    text}, or None when the toolkit has no cuobjdump."""
+    import re
+    funcs = sass_functions(so)
+    if funcs is None:
+        return None
+    src = open(os.path.join(ROOT, "visfd_tpu_torch", "csrc",
+                            "eigen.cu")).read()
+    zt = re.search(r"constexpr int kZT = (\d+);", src)
+    out = {}
+    for name, ins in funcs.items():
+        if not name.startswith(("hessian_principal", "sym3_score")):
+            continue
+        per_pass = int(zt.group(1)) if zt and "hessian" in name else 1
+        c = sass_counts(ins, per_pass)
+        out[name] = (f"SASS: {c['per_voxel']:.0f} instructions per voxel "
+                     f"({per_pass} voxel(s) a pass), hot path {c['hot']}, "
+                     f"main body {c['main']}, all {c['all']}; MUFU "
+                     f"{c['mufu']}, CALL {c['call']}, LDL/STL {c['local']}")
+    return out
 
 
 def phase_build(chk):
@@ -303,10 +435,15 @@ def phase_build(chk):
     print(f"built {os.path.relpath(so, ROOT)} in "
           f"{time.perf_counter() - t0:.1f} s (one nvcc per source, in "
           f"parallel)")
+    sass = _eigen_sass(so)
+    if sass is None:
+        print("  cuobjdump: absent from this CUDA toolkit; no SASS counts")
     log = so.with_suffix(".log")
     if log.exists():
         for ln in _ptxas_report(log.read_text()):
-            print("  ptxas:", ln)
+            name = ln.split(":")[0]
+            print("  ptxas:", ln + (f"; {sass[name]}" if sass and name in sass
+                                    else ""))
     chk.check(True, "kernels built and loaded")
     return so
 
@@ -331,6 +468,13 @@ def _eigen_check(chk, label, s_k, v_k, raw, formula):
                 f"{float(well.float().mean()):.4f} of voxels")
     chk.check(ok, msg)
     return err
+
+
+def _block_views(bp):
+    """(block, z_lo, z_hi, y_lo, y_hi), the arguments of
+    ``hessian_principal_block``, as views of a (Z+2, Y+2, X) tensor whose
+    border planes and rows in z and y are the block's halos."""
+    return bp[1:-1, 1:-1], bp[0], bp[-1], bp[1:-1, 0], bp[1:-1, -1]
 
 
 def _tv_check(chk, label, got, got_den, raw):
@@ -580,18 +724,37 @@ def phase_small_shapes(chk, card, dev="cuda"):
             ok, err, _ = close(got.cpu(), want, 1e-5, 1e-6)
             chk.check(ok, f"{shape} blur taps 5/3/7{label} max|d|={err:.3g}")
             record("blur3", err)
+        # the per-shard entry: x as the block, read through a strided
+        # view of a larger tensor whose border rows are its halo slabs
+        xp = rng.normal(size=(shape[0] + 2, shape[1] + 2, shape[2]))
+        xp[1:-1, 1:-1] = x
+        xp = xp.astype(np.float32)
+        halo_views = _block_views(torch.tensor(xp, device=dev))
         for decreasing in (True, False):
             raw = EC.hessian_principal_plain(torch.tensor(x), 1.7,
                                              decreasing, "vals", True)
+            raw_b = EC.hessian_principal_block_plain(
+                *_block_views(torch.tensor(xp)), 1.7, decreasing, "vals",
+                True)
             t6 = rng.normal(size=(6,) + shape).astype(np.float32)
             raw6 = EC.sym3_score_plain(torch.tensor(t6), decreasing,
                                        "vals", True)
             for formula in ("planar", "linear", "stick", "vals"):
-                s_k, v_k = EC.hessian_principal(xc, 1.7, decreasing,
-                                                formula, True)
-                record("hessian_principal", _eigen_check(
-                    chk, f"{shape} hessian_principal {formula} "
-                         f"decreasing={decreasing}", s_k, v_k, raw, formula))
+                for want_v in (True, False):
+                    tag = (f"{formula}{'+v' if want_v else ''} "
+                           f"decreasing={decreasing}")
+                    s_k, v_k = EC.hessian_principal(xc, 1.7, decreasing,
+                                                    formula, want_v)
+                    record("hessian_principal", _eigen_check(
+                        chk, f"{shape} hessian_principal {tag}", s_k, v_k,
+                        raw, formula))
+                    out = EC.hessian_principal_block(*halo_views, 1.7,
+                                                     decreasing, formula,
+                                                     want_v)
+                    s_k, v_k = EC._split(out, formula, want_v)
+                    record("hessian_principal_block", _eigen_check(
+                        chk, f"{shape} hessian_principal_block {tag}", s_k,
+                        v_k, raw_b, formula))
                 s_k, v_k = EC.sym3_score(torch.tensor(t6, device=dev),
                                          decreasing, formula, True)
                 record("sym3_score", _eigen_check(
@@ -895,32 +1058,41 @@ def phase_mesh_kernels(chk, card, dev="cuda"):
     gen = torch.Generator(device=dev).manual_seed(SEED + 50)
     stats = {}
 
-    # --- Hessian + eigensolve on a 1-haloed block ----------------------
-    x = torch.randn(tuple(n + 2 for n in block), generator=gen, device=dev)
+    # --- Hessian + eigensolve: a block read in place beside its halo
+    #     slabs, each a tensor of its own as the sharded path hands them
+    #     over; then the JAX package's interface, a padded block ---------
+    x = torch.randn((block[0] + 2, block[1] + 2, block[2] + 2),
+                    generator=gen, device=dev)
     bp = blur_cuda.blur3(x, [torch.as_tensor(K.gauss_kernel_1d(1.73, 4),
                                              device=dev)] * 3)
     del x
-    raw = EC.hessian_principal_prepadded_plain(bp.cpu(), 1.73, True, "vals",
-                                               True)
-    out = EC.hessian_principal_prepadded(bp, 1.73, True, "planar", True)
-    err = _eigen_check(chk, f"hessian_principal_prepadded planar+v {block}",
+    parts = [t.contiguous() for t in _block_views(bp[:, :, 1:-1])]
+    raw = EC.hessian_principal_block_plain(*[t.cpu() for t in parts], 1.73,
+                                           True, "vals", True)
+    out = EC.hessian_principal_block(*parts, 1.73, True, "planar", True)
+    err = _eigen_check(chk, f"hessian_principal_block planar+v {block}",
                        out[0], out[1:4], raw, "planar")
+    out = EC.hessian_principal_prepadded(bp, 1.73, True, "planar", True)
+    err = max(err, _eigen_check(
+        chk, f"hessian_principal_prepadded planar+v {block}", out[0],
+        out[1:4], raw, "planar"))
     del raw, out
-    inner = bp[1:-1, 1:-1, 1:-1].contiguous()
-    ms = cuda_ms(lambda: EC.hessian_principal_prepadded(bp, 1.73), 10)
+    inner = parts[0]
+    ms = cuda_ms(lambda: EC.hessian_principal_block(*parts, 1.73), 10)
+    ms_pad = cuda_ms(lambda: EC.hessian_principal_prepadded(bp, 1.73), 10)
     ms1 = cuda_ms(lambda: EC.hessian_principal(inner, 1.73), 10)
-    pms = cuda_ms(lambda: EC.hessian_principal_prepadded_plain(bp, 1.73),
-                  2)
-    b = bound_ms(4 * bp.numel() + 16 * nvox,
+    pms = cuda_ms(lambda: EC.hessian_principal_block_plain(*parts, 1.73), 2)
+    b = bound_ms(4 * sum(t.numel() for t in parts) + 16 * nvox,
                  (HESSIAN_OPS + SCORE_OPS["planar"]) * nvox)
-    stats["hessian_principal_prepadded"] = dict(
+    stats["hessian_principal_block"] = dict(
         max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
         library_ms=None)
-    print(f"  hessian_principal_prepadded planar+v: kernel {ms:.3f} ms, "
-          f"single-device kernel on the same voxels {ms1:.3f} ms, plain "
-          f"{pms:.3f} ms (on the card), bound {b[0]:.3f} ms ({b[1]}) "
-          f"[{card}]")
-    del bp, inner
+    print(f"  hessian_principal_block planar+v: kernel {ms:.3f} ms "
+          f"(through hessian_principal_prepadded on views of a padded "
+          f"block {ms_pad:.3f} ms), single-device kernel on the same "
+          f"voxels {ms1:.3f} ms, plain {pms:.3f} ms (on the card), bound "
+          f"{b[0]:.3f} ms ({b[1]}), {b[0] / ms:.0%} of it [{card}]")
+    del bp, parts, inner
 
     # --- voting on hw-haloed fields: masked + denominator, then the
     #     main path's sparse mode on the -tv-best 0.05 field of a block -
@@ -1032,8 +1204,8 @@ def phase_mesh_small(chk, card, dev="cuda"):
                            f"kernel: {nd} values differ")
         raw = EC.hessian_principal_plain(torch.tensor(x), 1.7, True, "vals",
                                          True)
-        errs["hessian_principal_prepadded"] = max(
-            errs.get("hessian_principal_prepadded", 0.0), _eigen_check(
+        errs["hessian_principal_block"] = max(
+            errs.get("hessian_principal_block", 0.0), _eigen_check(
                 chk, f"{label} hessian sharded {formula}", ss, vs, raw,
                 formula))
         sal = torch.where(ss > ss.quantile(0.5), ss, 0.0)
@@ -1083,7 +1255,7 @@ def phase_mesh_stages(chk, card, dev="cuda"):
     from visfd_tpu_torch.ops import filters as F
     from visfd_tpu_torch.ops.tv_cuda import tv_votes
     from visfd_tpu_torch.parallel import sharded as SH
-    from visfd_tpu_torch.parallel.halo import halo_pad_2d
+    from visfd_tpu_torch.parallel.halo import face_halos, halo_pad_2d
     from visfd_tpu_torch.parallel.reduce import fraction_threshold
     from visfd_tpu_torch.parallel.mesh import shard
     from visfd_tpu_torch.utils.phantom import membrane_phantom
@@ -1128,6 +1300,12 @@ def phase_mesh_stages(chk, card, dev="cuda"):
     both("hessian_principal planar+v",
          lambda: EC.hessian_principal(blur, sigma),
          lambda: SH.hessian_principal_sharded(bs, sigma))
+    t1, t4 = times["hessian_principal planar+v"]
+    face_ms = cuda_ms(lambda: [face_halos(bs, iz, iy)
+                               for iz, iy, _ in bs.cells()], 3)
+    print(f"  hessian stage sharded / single device: {t4 / t1:.3f}; the "
+          f"halo slabs of the {len(bs.blocks) * len(bs.blocks[0])} blocks "
+          f"(face_halos) {face_ms:.3f} ms [{card}]")
     del bs, blur
 
     # the -tv-best threshold: sort against radix selection over blocks
@@ -1180,6 +1358,13 @@ def phase_mesh_stages(chk, card, dev="cuda"):
                        f"differ")
     both("sym3_score stick", lambda: EC.sym3_score(vote),
          lambda: SH.sym3_score_sharded(vote_s))
+    nvox = vote[0].numel()
+    b = bound_ms(28 * nvox, (SYM3_OPS + SCORE_OPS["stick"]) * nvox)
+    t1 = times["sym3_score stick"][0]
+    print(f"  sym3_score stick at {nvox} voxels: bound {b[0]:.3f} ms "
+          f"({b[1]}), the single-device kernel {b[0] / t1:.0%} of it; "
+          f"{float((vote == 0).all(0).float().mean()):.4f} of the voxels' "
+          f"vote tensors are zero [{card}]")
     return halo_ms
 
 
@@ -1200,7 +1385,7 @@ def phase_mesh_cli(chk, card, tmp, dev="cuda"):
           f"{[str(d) for d in mesh_devs]} [{card}]", flush=True)
     wrappers = {"blur3": blur_cuda.blur3,
                 "hessian_principal": EC.hessian_principal,
-                "hessian_principal_prepadded": EC.hessian_principal_prepadded,
+                "hessian_principal_block": EC.hessian_principal_block,
                 "tv_votes": tv_cuda.tv_votes,
                 "tv_votes_prepadded": tv_cuda.tv_votes_prepadded,
                 "sym3_score": EC.sym3_score}
@@ -1239,7 +1424,7 @@ def phase_mesh_cli(chk, card, tmp, dev="cuda"):
     (meshed, paths), (single, paths1) = outs["-mesh"], outs["single device"]
     n = len(mesh_devs)
     lm = launches["-mesh"]
-    chk.check(lm["hessian_principal_prepadded"] == n
+    chk.check(lm["hessian_principal_block"] == n
               and lm["tv_votes_prepadded"] == n and lm["sym3_score"] == n
               and lm["blur3"] == n and lm["hessian_principal"] == 0
               and lm["tv_votes"] == 0,
@@ -1303,7 +1488,7 @@ def main() -> int:
     # launches: the main path's run (phase 3) for the single-device
     # kernels, the -mesh run (5c) for the per-shard modes
     launches = {**launches,
-                **{k: mesh_launches[k] for k in ("hessian_principal_prepadded",
+                **{k: mesh_launches[k] for k in ("hessian_principal_block",
                                                  "tv_votes_prepadded")}}
     stats = {**stats, **mesh_stats}
     errs = [small, main_errs, mesh_small]

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the voting and blur kernels of this checkout, and optionally of
-another checkout, on one NVIDIA GPU, on the same inputs.
+"""Time the voting, blur and eigen kernels of this checkout, and
+optionally of another checkout, on one NVIDIA GPU, on the same inputs.
 
     python3 compare_kernels.py [--other DIR] [--reps N]
 
@@ -14,14 +14,25 @@ threshold), so every checkout sees the same bits:
 - ``planes``: the 5%-occupied field of every 20th z plane;
 - ``dense``: a 74%-occupied random field;
 - ``block``: the ``-tv-best 0.05`` field of a (262, 518, 1030) phantom,
-  one (256, 512, 1024) block of the -mesh run with its 3-deep halos.
+  one (256, 512, 1024) block of the -mesh run with its 3-deep halos;
+- ``blur``, ``blur_pad``, ``blur_big``: the blurred phantom (sigma 1.73,
+  hw 4, the plain twin) at the main path's shape, at (258, 514, 1026)
+  (one block of the -mesh run with its 1-deep halos) and at the -mesh
+  run's (512, 1024, 1024);
+- ``vote``, ``vote_big``: the raw votes of ``real`` and of the
+  ``-tv-best 0.05`` field of ``blur_big``'s phantom, the inputs of the
+  vote score at 67M and 537M voxels; ``vote_dense``, those of
+  ``dense`` (every voxel's tensor non-zero).
 
 Each checkout's ``visfd_tpu_torch`` is imported in turn (the other, this,
 this, the other) and times ``blur3`` at hw 4, ``tv_votes`` (hw 3,
 exponent 4) dense and sparse on every field, and
-``tv_votes_prepadded`` sparse on the block, with CUDA events (median of
-``--reps``).  It prints one JSON line per turn, then the fields'
-occupancy.
+``tv_votes_prepadded`` sparse on the block, ``hessian_principal``
+(planar + v) at 67M and 537M voxels, ``hessian_principal_prepadded`` on
+the haloed block (and ``hessian_principal_block`` on the same block and
+halos, where the checkout has it), and ``sym3_score`` (stick) on the
+three vote fields, with CUDA events (median of ``--reps``).  It prints
+one JSON line per turn, then the fields' occupancy.
 """
 
 from __future__ import annotations
@@ -40,7 +51,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 1234
 MAIN_SHAPE = (256, 512, 512)
 BLOCK = (256, 512, 1024)
+BIG = (512, 1024, 1024)
 HW = 3
+SIGMA_H = 1.73
 
 
 def load(root):
@@ -54,19 +67,27 @@ def load(root):
     return visfd_tpu_torch
 
 
-def tv_best_field(shape, seed, dev):
-    """(saliency, direction (3, Z, Y, X)) as the CLI's ``-membrane
-    minima 3 -tv-best 0.05`` leaves them, from the plain blur twin."""
+def blurred_phantom(shape, seed, dev, sigma=SIGMA_H):
+    """A seeded phantom blurred by the plain blur twin (hw 4)."""
     import torch
-    from visfd_tpu_torch.ops import blur_cuda, eigen_cuda as EC
+    from visfd_tpu_torch.ops import blur_cuda
     from visfd_tpu_torch.ops import kernels as K
-    from visfd_tpu_torch.parallel.reduce import fraction_threshold
     from visfd_tpu_torch.utils.phantom import membrane_phantom
-    sigma = 3.0 / np.sqrt(3.0)
     vol, _ = membrane_phantom(shape, seed=seed, thickness=3.0, device=dev)
     ks = [torch.as_tensor(K.gauss_kernel_1d(sigma, 4), device=dev)] * 3
-    blur = blur_cuda.blur3_plain(vol, ks)
-    del vol
+    return blur_cuda.blur3_plain(vol, ks)
+
+
+def tv_best_field(shape, seed, dev, blur=None):
+    """(saliency, direction (3, Z, Y, X)) as the CLI's ``-membrane
+    minima 3 -tv-best 0.05`` leaves them, from the plain blur twin (or
+    from ``blur``, that phantom already blurred)."""
+    import torch
+    from visfd_tpu_torch.ops import eigen_cuda as EC
+    from visfd_tpu_torch.parallel.reduce import fraction_threshold
+    sigma = 3.0 / np.sqrt(3.0)
+    if blur is None:
+        blur = blurred_phantom(shape, seed, dev, sigma)
     score, v = EC.hessian_principal(blur, sigma)
     del blur
     thr = fraction_threshold(score, 0.05)
@@ -89,8 +110,35 @@ def build_inputs(dev):
     real, real_v = tv_best_field(MAIN_SHAPE, SEED, dev)
     pshape = tuple(n + 2 * HW for n in BLOCK)
     block, block_v = tv_best_field(pshape, SEED + 50, dev)
-    return dict(x=x, nv=nv, planes=planes, dense=dense, real=real,
-                real_v=real_v, block=block, block_v=block_v)
+    inp = dict(x=x, nv=nv, planes=planes, dense=dense, real=real,
+               real_v=real_v, block=block, block_v=block_v)
+    inp["vote"] = votes(real, real_v)
+    inp["vote_dense"] = votes(dense, nv)
+    inp["blur"] = blurred_phantom(MAIN_SHAPE, SEED + 1, dev)
+    inp["blur_pad"] = blurred_phantom(tuple(n + 2 for n in BLOCK),
+                                      SEED + 2, dev)
+    sigma = 3.0 / np.sqrt(3.0)
+    inp["blur_big"] = blurred_phantom(BIG, SEED + 3, dev, sigma)
+    sal, v = tv_best_field(BIG, SEED + 3, dev, blur=inp["blur_big"])
+    inp["vote_big"] = votes(sal, v)
+    return inp
+
+
+def votes(sal, v):
+    """The raw (6, Z, Y, X) votes of a field (sparse, hw 3, exponent 4)."""
+    from visfd_tpu_torch.ops.tv_cuda import tv_votes
+    return tv_votes(sal, v, HW / np.sqrt(2.0) + 1e-6, exponent=4,
+                    truncate_ratio=float(np.sqrt(2.0)), sparse=True,
+                    channel_major=True, nvec_channel_major=True)[0]
+
+
+def block_halos(bp):
+    """The contiguous block inside a 1-haloed (Z+2, Y+2, X+2) block and
+    its halo slabs (z below and above with their corner rows, y below
+    and above), as the sharded Hessian hands them over."""
+    return [t.contiguous() for t in (bp[1:-1, 1:-1, 1:-1], bp[0, :, 1:-1],
+                                     bp[-1, :, 1:-1], bp[1:-1, 0, 1:-1],
+                                     bp[1:-1, -1, 1:-1])]
 
 
 def time_checkout(inp, reps):
@@ -118,6 +166,25 @@ def time_checkout(inp, reps):
     out["tv_votes_prepadded block sparse"] = cuda_ms(
         lambda: tv_votes_prepadded(inp["block"], inp["block_v"], sigma,
                                    BLOCK, sparse=True, **kw), reps)
+    from visfd_tpu_torch.ops import eigen_cuda as EC
+    out["hessian_principal planar+v"] = cuda_ms(
+        lambda: EC.hessian_principal(inp["blur"], SIGMA_H), 4 * reps)
+    out["hessian_principal planar+v 537M"] = cuda_ms(
+        lambda: EC.hessian_principal(inp["blur_big"], SIGMA_H), reps)
+    out["hessian_principal_prepadded block planar+v"] = cuda_ms(
+        lambda: EC.hessian_principal_prepadded(inp["blur_pad"], SIGMA_H),
+        2 * reps)
+    if hasattr(EC, "hessian_principal_block"):
+        parts = block_halos(inp["blur_pad"])
+        out["hessian_principal_block block planar+v"] = cuda_ms(
+            lambda: EC.hessian_principal_block(*parts, SIGMA_H), 2 * reps)
+        del parts
+    out["sym3_score stick"] = cuda_ms(lambda: EC.sym3_score(inp["vote"]),
+                                      4 * reps)
+    out["sym3_score stick 537M"] = cuda_ms(
+        lambda: EC.sym3_score(inp["vote_big"]), reps)
+    out["sym3_score stick dense-field votes"] = cuda_ms(
+        lambda: EC.sym3_score(inp["vote_dense"]), 4 * reps)
     return out
 
 

@@ -183,6 +183,91 @@ def test_scores_match_jax():
             np.asarray(getattr(JH, name)(jnp.asarray(e))), rtol=1e-6)
 
 
+def _block_and_halos(x, z0, y0, bz, by):
+    """The (bz, by, X) block of ``x`` at (z0, y0) and its four 1-deep
+    halo slabs (z below and above with their y-corner rows, y before and
+    after), cut from the volume zero-padded in z and y."""
+    p = np.pad(x, ((1, 1), (1, 1), (0, 0)))
+    z, y = z0 + 1, y0 + 1
+    parts = (p[z:z + bz, y:y + by], p[z - 1, y - 1:y + by + 1],
+             p[z + bz, y - 1:y + by + 1], p[z:z + bz, y - 1],
+             p[z:z + bz, y + by])
+    return [to_torch(np.ascontiguousarray(a)) for a in parts]
+
+
+@pytest.mark.parametrize("bz", [1, 2, 3, 12])
+@pytest.mark.parametrize("by", [1, 2, 3, 12])
+def test_hessian_block_twin_matches_single_device_twin(bz, by):
+    """The per-shard entry's twin on each block of a 3 x 3 grid of (bz,
+    by) blocks, beside its halo slabs, assembled and its faces clamped,
+    against the single-device twin: to the sharded eigen tolerance of
+    tests/test_torch_mesh.py (the twins' vectorised transcendentals may
+    round a voxel differently with the tensor's shape)."""
+    x = np.random.default_rng(11).normal(
+        size=(3 * bz, 3 * by, 13)).astype(np.float32)
+    out = torch.empty((4,) + x.shape)
+    for iz in range(3):
+        for iy in range(3):
+            out[:, iz * bz:(iz + 1) * bz, iy * by:(iy + 1) * by] = \
+                EC.hessian_principal_block(
+                    *_block_and_halos(x, iz * bz, iy * by, bz, by), SIGMA)
+    EC.clamp_faces(out)
+    want = to_numpy(EC.hessian_principal_plain(to_torch(x), SIGMA))
+    got = to_numpy(out)
+    np.testing.assert_allclose(got[0], want[0], rtol=2e-5,
+                               atol=np.abs(want[0]).max() * 1e-6)
+    well = want[0] > np.abs(want[0]).max() * 1e-3
+    assert np.abs((got[1:] * want[1:]).sum(0))[well].min() > 1 - 1e-4
+
+
+def test_hessian_block_refuses_wrong_halo_shapes():
+    parts = _block_and_halos(np.zeros((4, 5, 6), np.float32), 0, 0, 4, 5)
+    EC.hessian_principal_block(*parts, SIGMA)
+    for i, bad in ((1, parts[1][1:]), (3, parts[3][:, 1:]),
+                   (0, parts[0][:, :, :2])):
+        with pytest.raises(ValueError, match="hessian_principal_block"):
+            EC.hessian_principal_block(*parts[:i], bad, *parts[i + 1:],
+                                       SIGMA)
+
+
+def test_hessian_prepadded_is_the_block_entry_on_views():
+    """The JAX package's per-shard interface (a padded block) runs the
+    per-shard entry on views of it: the same floats."""
+    rng = np.random.default_rng(12)
+    xp = to_torch(rng.normal(size=(7, 9, 11)).astype(np.float32))
+    for formula in ("planar", "vals"):
+        got = EC.hessian_principal_prepadded(xp, SIGMA, formula=formula)
+        want = EC.hessian_principal_block(
+            xp[1:-1, 1:-1, 1:-1], xp[0, :, 1:-1], xp[-1, :, 1:-1],
+            xp[1:-1, 0, 1:-1], xp[1:-1, -1, 1:-1], SIGMA, formula=formula)
+        np.testing.assert_array_equal(to_numpy(got), to_numpy(want))
+
+
+@pytest.mark.parametrize("formula", ["planar", "linear", "stick", "vals"])
+def test_hessian_block_cuda_matches_twin(cuda, blur, formula):
+    """The per-shard kernel against its twin, on a block inside the
+    volume and on one at its corner (zero halos), both orders, with and
+    without the vector."""
+    for (z0, y0, bz, by), decreasing in (((4, 6, 5, 9), True),
+                                         ((0, 0, 7, 3), False)):
+        parts = _block_and_halos(blur, z0, y0, bz, by)
+        vals = to_numpy(EC.hessian_principal_block(
+            *parts, SIGMA, decreasing, "vals", False), channels_last=True)
+        want = EC.hessian_principal_block(*parts, SIGMA, decreasing, formula,
+                                          True)
+        ns = 3 if formula == "vals" else 1
+        for want_v in (True, False):
+            got = EC.hessian_principal_block(*[p.to(cuda) for p in parts],
+                                             SIGMA, decreasing, formula,
+                                             want_v)
+            assert got.shape[0] == ns + (3 if want_v else 0)
+            _close(to_numpy(got[:ns]), to_numpy(want[:ns]), formula)
+            if want_v:
+                _same_direction(to_numpy(got[ns:], channels_last=True),
+                                to_numpy(want[ns:], channels_last=True),
+                                vals)
+
+
 @pytest.mark.parametrize("formula", ["planar", "linear", "stick", "vals"])
 def test_eigen_cuda_kernels_match_twins(cuda, blur, t6, formula):
     for decreasing in (True, False):

@@ -217,6 +217,90 @@ def test_hessian_principal_sharded_matches_single(shape, grid, formula):
         _eigen_close(to_host_np(gs), to_host_np(gv), ws.numpy(), wv.numpy())
 
 
+@pytest.mark.parametrize("formula,decreasing", [("linear", False),
+                                                ("vals", True)])
+def test_hessian_principal_sharded_thin_blocks_match_jax(tmesh, jmesh,
+                                                         formula, decreasing):
+    """Blocks (2, 3) on the (4, 2) mesh: the per-shard entry (each block
+    in place, face-sized halo slabs) against JAX's padded blocks."""
+    x = np.random.default_rng(14).normal(size=(8, 6, 17)).astype(np.float32)
+    js, jv = JSH.hessian_principal_sharded(
+        _jshard(x, jmesh), jmesh, 1.5, decreasing=decreasing,
+        formula=formula, want_v=True, interpret=True)
+    ts, tv = TSH.hessian_principal_sharded(shard(x, tmesh), 1.5,
+                                           decreasing=decreasing,
+                                           formula=formula, want_v=True)
+    if formula == "vals":
+        want = np.asarray(js)
+        np.testing.assert_allclose(to_host_np(ts), want, rtol=2e-5,
+                                   atol=np.abs(want).max() * 1e-6)
+        return
+    _eigen_close(to_host_np(ts), to_host_np(tv), np.asarray(js),
+                 np.asarray(jv))
+
+
+@pytest.mark.parametrize("shape,grid", [((8, 6, 5), (4, 2)),
+                                        ((3, 3, 4), (3, 3)),
+                                        ((6, 4, 3), (2, 4))])
+def test_face_halos_match_zero_padded_slices(shape, grid):
+    """Blocks (2, 3), (1, 1) and (3, 1): each slab equals the slice of
+    the volume zero-padded in z and y, y-corner rows included, and the y
+    halos are views of the neighbouring blocks."""
+    from visfd_tpu_torch.parallel.halo import face_halos
+    cpu = torch.device("cpu")
+    mesh = Mesh(tuple((cpu,) * grid[1] for _ in range(grid[0])))
+    a = np.random.default_rng(15).normal(size=shape).astype(np.float32)
+    p = np.pad(a, [(1, 1), (1, 1), (0, 0)])
+    vol = shard(a, mesh)
+    bz, by = vol.block_shape
+    for iz, iy, b in vol.cells():
+        z, y = iz * bz + 1, iy * by + 1
+        got = face_halos(vol, iz, iy)
+        want = (p[z - 1, y - 1:y + by + 1], p[z + bz, y - 1:y + by + 1],
+                p[z:z + bz, y - 1], p[z:z + bz, y + by])
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), w)
+        if iy > 0:
+            assert got[2].data_ptr() == vol.blocks[iz][iy - 1][:, -1].data_ptr()
+
+
+def test_hessian_sharded_copies_no_block(monkeypatch):
+    """The sharded Hessian hands each block itself to the per-shard
+    entry, with face-sized halo slabs, and no ``cat`` or ``pad`` it makes
+    is larger than a halo plane."""
+    cpu = torch.device("cpu")
+    mesh = Mesh(((cpu,) * 2,) * 2)
+    x = np.random.default_rng(16).normal(size=(8, 10, 7)).astype(np.float32)
+    vol = shard(x, mesh)
+    bz, by = vol.block_shape
+    plane = (by + 2) * x.shape[2]
+    made, seen = [], []
+
+    def recording(fn):
+        def wrapped(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            made.append(out.numel())
+            return out
+        return wrapped
+
+    def block_entry(block, z_lo, z_hi, y_lo, y_hi, sigma, decreasing,
+                    formula, want_v):
+        seen.append((block, [t.numel() for t in (z_lo, z_hi, y_lo, y_hi)]))
+        return torch.zeros((4,) + tuple(block.shape))
+
+    monkeypatch.setattr(torch, "cat", recording(torch.cat))
+    monkeypatch.setattr(torch.nn.functional, "pad",
+                        recording(torch.nn.functional.pad))
+    monkeypatch.setattr(TSH, "hessian_principal_block", block_entry)
+    TSH.hessian_principal_sharded(vol, 1.5)
+    blocks = [b for _, _, b in vol.cells()]
+    assert len(seen) == len(blocks)
+    for (b, sizes), want in zip(seen, blocks):
+        assert b is want
+        assert sizes == [plane, plane, bz * x.shape[2], bz * x.shape[2]]
+    assert made and max(made) <= plane
+
+
 def test_hessian_prepadded_twin_and_clamp_faces():
     """On a zero-padded volume with its faces clamped, the per-shard FD
     Hessian is the single-device one exactly, and the per-shard twin

@@ -7,10 +7,14 @@ Each entry of VARIANTS edits a copy of ``visfd_tpu_torch/csrc`` (exact
 text replacements), which is built with the package's nvcc flags into a
 library of its own.  The variants are timed in turns, first to last and
 then last to first, on the inputs of ``compare_kernels.py``: ``blur3``
-at hw 4 and ``tv_votes`` (hw 3, exponent 4) dense and sparse on the
-``-tv-best 0.05`` field and the 74% field.  Every variant's outputs must
-equal the first variant's bit for bit (an edit may change the schedule,
-not the arithmetic), and sparse voting must equal dense.  One JSON line
+at hw 4, ``tv_votes`` (hw 3, exponent 4) dense and sparse on the
+``-tv-best 0.05`` field and the 74% field, ``hessian_principal``
+(planar + v) at the main path's shape, ``hessian_principal_block`` on
+one block of the -mesh run beside its halo slabs and ``sym3_score``
+(stick) on the votes of the ``-tv-best 0.05`` field.  Every variant's
+outputs must equal the first variant's bit for bit (an edit may change
+the schedule, not the arithmetic), and sparse voting must equal
+dense.  One JSON line
 per variant and turn; the last line says whether every check held.
 """
 
@@ -41,6 +45,16 @@ VARIANTS = {
                    "constexpr int kTZ = 16;")],
     "blur kR 1": [("blur.cu", "constexpr int kR = 4;", "constexpr int kR = 1;")],
     "blur kR 2": [("blur.cu", "constexpr int kR = 4;", "constexpr int kR = 2;")],
+    "eigen kZT 2": [("eigen.cu", "constexpr int kZT = 4;",
+                     "constexpr int kZT = 2;")],
+    "eigen kZT 8": [("eigen.cu", "constexpr int kZT = 4;",
+                     "constexpr int kZT = 8;")],
+    "eigen kZC 64": [("eigen.cu", "constexpr int kZC = 32;",
+                      "constexpr int kZC = 64;")],
+    "eigen 4 blocks an SM": [("eigen.cu", "__launch_bounds__(kThreads, 2)",
+                              "__launch_bounds__(kThreads, 4)")],
+    "eigen 5 blocks an SM": [("eigen.cu", "__launch_bounds__(kThreads, 2)",
+                              "__launch_bounds__(kThreads, 5)")],
 }
 
 
@@ -94,7 +108,7 @@ def main():
         return 2
     CK.load(ROOT)
     from visfd_tpu_torch import _cuda_build as cb
-    from visfd_tpu_torch.ops import blur_cuda, tv_cuda
+    from visfd_tpu_torch.ops import blur_cuda, eigen_cuda, tv_cuda
     from visfd_tpu_torch.ops import kernels as K
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -110,6 +124,7 @@ def main():
         kw = dict(exponent=4, truncate_ratio=float(np.sqrt(2.0)),
                   channel_major=True, nvec_channel_major=True)
         ks = [torch.as_tensor(K.gauss_kernel_1d(1.73, 4), device=dev)] * 3
+        halos = CK.block_halos(inp["blur_pad"])
         names = list(VARIANTS)
         ref, ok = None, True
         for order in (names, names[::-1]):
@@ -123,10 +138,22 @@ def main():
                         t[f"tv_votes {f} {'sparse' if sp else 'dense'}"] = \
                             cuda_ms(lambda: tv_cuda.tv_votes(
                                 sal, nv, sigma, sparse=sp, **kw), args.reps)
+                hess = (
+                    lambda: eigen_cuda.hessian_principal(inp["blur"],
+                                                         CK.SIGMA_H),
+                    lambda: eigen_cuda.hessian_principal_block(
+                        *halos, CK.SIGMA_H),
+                    lambda: eigen_cuda.sym3_score(inp["vote"]))
+                for label, fn in zip(("hessian_principal planar+v",
+                                      "hessian_principal_block planar+v",
+                                      "sym3_score stick"), hess):
+                    t[label] = cuda_ms(fn, 4 * args.reps)
                 outs = [tv_cuda.tv_votes(inp["real"], inp["real_v"], sigma,
                                          sparse=sp, **kw)[0]
                         for sp in (True, False)]
                 outs.append(blur_cuda.blur3(inp["x"], ks))
+                outs += [torch.cat([o.reshape(-1) for o in fn()
+                                    if o is not None]) for fn in hess]
                 ref = outs if ref is None else ref
                 differ = [int((a.view(torch.int32) != b.view(torch.int32))
                               .sum()) for a, b in zip(outs + outs[:1],
@@ -134,8 +161,9 @@ def main():
                 ok = ok and not any(differ)
                 print(json.dumps({"variant": name, "ms": t,
                                   "bits differing from the first variant "
-                                  "(sparse, dense, blur), sparse vs dense":
-                                  differ}), flush=True)
+                                  "(sparse, dense, blur, hessian, block, "
+                                  "vote score), sparse vs dense": differ}),
+                      flush=True)
     print(f"[{card}]")
     print(json.dumps({"ok": ok}))
     return 0 if ok else 1

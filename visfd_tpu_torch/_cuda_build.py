@@ -45,10 +45,13 @@ _SIGNATURES = {
     "visfd_blur3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # blur, out, nz, ny, nx, sigma^2, decreasing, formula, want_v, stream
     "visfd_hessian_principal": [_P, _P, _I, _I, _I, _F, _I, _I, _I, _P],
-    # blur_pad (nz+2, ny+2, nx+2), out, nz, ny, nx, sigma^2, decreasing,
+    # block and its plane and row strides; the z halo planes below and
+    # above, each with its row stride; the y halo rows before and after,
+    # each with its plane stride; out, nz, ny, nx, sigma^2, decreasing,
     # formula, want_v, stream
-    "visfd_hessian_principal_prepadded": [_P, _P, _I, _I, _I, _F, _I, _I,
-                                          _I, _P],
+    "visfd_hessian_principal_block": [_P, _I64, _I, _P, _I, _P, _I, _P, _I64,
+                                      _P, _I64, _P, _I, _I, _I, _F, _I, _I,
+                                      _I, _P],
     # t6, out, nvox, decreasing, formula, want_v, stream
     "visfd_sym3_score": [_P, _P, _I64, _I, _I, _I, _P],
     # sal, nvec, mask, taps, meta, out, nz, ny, nx, hw, rows, smem,

@@ -65,7 +65,13 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "cp_async.cuh"
+
 namespace {
+
+using visfd::cp_async4;
+using visfd::cp_async_commit;
+using visfd::cp_async_wait;
 
 constexpr int kTileX = 32;
 // receivers per thread along z: 4 beat 2, 8 and 16 on the card (fewer
@@ -73,23 +79,6 @@ constexpr int kTileX = 32;
 constexpr int kTZ = 4;
 constexpr int kMaxHw = 30;        // the 128-bit staged row holds 32 + 2hw
 constexpr int kMaxWinWords = ((2 * kMaxHw + 1) * (2 * kMaxHw + 1) + 31) / 32;
-
-__device__ __forceinline__ void cp_async4(void* smem, const float* gmem,
-                                          bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 4 : 0;  // 0: fill with zeros, read nothing
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 struct Acc {
   float v[7];

@@ -8,11 +8,15 @@ Port of ``visfd_tpu/ops/eigen_pallas.py``:
   principal eigensolve -> score (+ principal eigenvector), the faces
   replicating the nearest interior voxel.  Twin: ``hessian_fd`` ->
   ``principal_sym3`` -> score.
-* ``hessian_principal_prepadded``: the same on a block whose 1-deep
-  halos the caller filled (the per-shard mode of a ``-mesh`` run), with
-  no face clamp; ``clamp_faces`` replicates the global faces on the
-  assembled result.  Twin: ``hessian_fd_padded`` -> ``principal_sym3``
-  -> score.
+* ``hessian_principal_block``: the same on one block of a ``-mesh``
+  run, read in place, with its 1-deep halos in four slabs cut from the
+  neighbouring blocks (the per-shard mode); z and y are not clamped,
+  x (never split) is; ``clamp_faces`` replicates the global faces on
+  the assembled result.  ``hessian_principal_prepadded`` takes the JAX
+  package's per-shard interface, a block padded by its halos, and
+  launches the same kernel on views of it.  Twin: the padded block ->
+  ``hessian_fd_padded`` -> x faces clamped -> ``principal_sym3`` ->
+  score.
 * ``sym3_score``: channel-major (6, Z, Y, X) symmetric field -> eigen
   score (+ principal eigenvector).  Twin: ``principal_sym3`` -> score.
 
@@ -106,41 +110,118 @@ def hessian_principal(
         out = hessian_principal_plain(blur, sigma, decreasing, formula,
                                       want_v)
     else:
-        out = _hessian_cuda(hessian_principal, "visfd_hessian_principal",
-                            blur, blur.shape, sigma, decreasing, formula,
-                            want_v)
+        out = _hessian_cuda(blur, sigma, decreasing, formula, want_v)
+        hessian_principal.launches += 1
     return _split(out, formula, want_v)
 
 
 hessian_principal.launches = 0
 
 
-def _hessian_cuda(wrapper, entry, blur, out_shape, sigma, decreasing,
-                  formula, want_v) -> torch.Tensor:
-    """Launch the C ``entry`` on a CUDA tensor into a fresh (n_out,
-    *out_shape) block and count the launch on ``wrapper``."""
-    blur = _check_cuda(wrapper.__name__, blur, 3)
-    nz, ny, nx = out_shape
+def _hessian_out(t: torch.Tensor, out_shape, formula: str,
+                 want_v: bool) -> torch.Tensor:
     n_out = _n_score_channels(formula) + (3 if want_v else 0)
-    out = torch.empty((n_out, nz, ny, nx), dtype=torch.float32,
-                      device=blur.device)
+    return torch.empty((n_out,) + tuple(out_shape), dtype=torch.float32,
+                       device=t.device)
+
+
+def _hessian_cuda(blur, sigma, decreasing, formula, want_v) -> torch.Tensor:
+    """Launch the single-device kernel into a fresh (n_out, Z, Y, X)
+    block."""
+    blur = _check_cuda("hessian_principal", blur, 3)
+    out = _hessian_out(blur, blur.shape, formula, want_v)
     with torch.cuda.device(blur.device):
-        cb.check(getattr(cb.library(), entry)(
-            blur.data_ptr(), out.data_ptr(), nz, ny, nx,
+        cb.check(cb.library().visfd_hessian_principal(
+            blur.data_ptr(), out.data_ptr(), *blur.shape,
             float(sigma) * float(sigma), int(decreasing),
             _FORMULAS.index(formula), int(want_v), cb.stream_of(blur)),
-            entry)
-    wrapper.launches += 1
+            "visfd_hessian_principal")
     return out
 
 
-def hessian_principal_prepadded_plain(blur_pad: torch.Tensor, sigma: float,
-                                      decreasing: bool = True,
-                                      formula: str = "planar",
-                                      want_v: bool = True) -> torch.Tensor:
+def _pad_halos(block, z_lo, z_hi, y_lo, y_hi) -> torch.Tensor:
+    """The (Z+2, Y+2, X+2) block padded by its halo slabs, zeros in x."""
+    mid = torch.cat([y_lo[:, None], block, y_hi[:, None]], dim=1)
+    return torch.nn.functional.pad(
+        torch.cat([z_lo[None], mid, z_hi[None]]), (1, 1))
+
+
+def hessian_principal_block_plain(block, z_lo, z_hi, y_lo, y_hi,
+                                  sigma: float, decreasing: bool = True,
+                                  formula: str = "planar",
+                                  want_v: bool = True) -> torch.Tensor:
     """The twin of the per-shard mode: the raw (n_out, Z, Y, X) block."""
-    hess = hessian_fd_padded(blur_pad) * (float(sigma) * float(sigma))
-    return _solve_plain(hess, decreasing, formula, want_v)
+    hess = hessian_fd_padded(_pad_halos(block, z_lo, z_hi, y_lo, y_hi))
+    nx = block.shape[2]
+    hess = hess.index_select(2, torch.arange(nx, device=hess.device)
+                             .clamp(1, nx - 2))
+    return _solve_plain(hess * (float(sigma) * float(sigma)), decreasing,
+                        formula, want_v)
+
+
+def hessian_principal_block(
+    block: torch.Tensor,          # (Z, Y, X), read in place
+    z_lo: torch.Tensor,           # (Y+2, X): the plane below, corners too
+    z_hi: torch.Tensor,           # (Y+2, X): the plane above
+    y_lo: torch.Tensor,           # (Z, X): the rows before the block in y
+    y_hi: torch.Tensor,           # (Z, X): the rows after it
+    sigma: float,
+    decreasing: bool = True,
+    formula: str = "planar",
+    want_v: bool = True,
+) -> torch.Tensor:
+    """Per-shard entry of a mesh run (the counterpart of
+    ``hessian_principal_pallas_prepadded``): the fused FD Hessian +
+    eigensolve + score over one block, read in place, whose 1-deep halos
+    are the four slabs (zeros beyond the global volume).  Rows of the
+    slabs run along x; z_lo and z_hi hold the y-corner rows at their
+    first and last row.  The z and y faces are not clamped (the caller
+    replicates the global faces on the assembled result,
+    ``clamp_faces``); x, which a mesh never splits, is clamped as
+    ``hessian_principal`` clamps it.  Any tensor may be a strided view
+    whose x stride is 1.  Returns the raw channel-stacked (n_out, Z, Y,
+    X) block."""
+    nz, ny, nx = block.shape if block.ndim == 3 else (0, 0, 0)
+    shapes = [tuple(t.shape) for t in (z_lo, z_hi, y_lo, y_hi)]
+    if (block.ndim != 3 or min(nz, ny) < 1 or nx < 3
+            or shapes != [(ny + 2, nx)] * 2 + [(nz, nx)] * 2):
+        raise ValueError("hessian_principal_block needs a (Z, Y, X) block "
+                         "with X >= 3, (Y+2, X) z halos and (Z, X) y halos, "
+                         f"got {tuple(block.shape)} and {shapes}")
+    ts = (block, z_lo, z_hi, y_lo, y_hi)
+    if block.device.type == "cpu":
+        return hessian_principal_block_plain(*ts, sigma, decreasing, formula,
+                                             want_v)
+    for t in ts:
+        if t.device != block.device or t.dtype != torch.float32:
+            raise ValueError("hessian_principal_block takes float32 tensors "
+                             f"on one device, got {t.dtype} on {t.device} "
+                             f"beside {block.device}")
+    # the kernel walks rows along x: each row must be contiguous
+    b, zl, zh, yl, yh = (t if t.stride(-1) == 1 else t.contiguous()
+                         for t in ts)
+    out = _hessian_out(b, b.shape, formula, want_v)
+    with torch.cuda.device(b.device):
+        cb.check(cb.library().visfd_hessian_principal_block(
+            b.data_ptr(), b.stride(0), b.stride(1),
+            zl.data_ptr(), zl.stride(0), zh.data_ptr(), zh.stride(0),
+            yl.data_ptr(), yl.stride(0), yh.data_ptr(), yh.stride(0),
+            out.data_ptr(), nz, ny, nx, float(sigma) * float(sigma),
+            int(decreasing), _FORMULAS.index(formula), int(want_v),
+            cb.stream_of(block)), "visfd_hessian_principal_block")
+    hessian_principal_block.launches += 1
+    return out
+
+
+hessian_principal_block.launches = 0
+
+
+def _halo_views(blur_pad: torch.Tensor):
+    """(block, z_lo, z_hi, y_lo, y_hi) as views of a block padded by its
+    1-deep halos (the x halo columns are not read)."""
+    return (blur_pad[1:-1, 1:-1, 1:-1], blur_pad[0, :, 1:-1],
+            blur_pad[-1, :, 1:-1], blur_pad[1:-1, 0, 1:-1],
+            blur_pad[1:-1, -1, 1:-1])
 
 
 def hessian_principal_prepadded(
@@ -150,25 +231,18 @@ def hessian_principal_prepadded(
     formula: str = "planar",
     want_v: bool = True,
 ) -> torch.Tensor:
-    """Per-shard entry of a mesh run (``hessian_principal_pallas_
-    prepadded``): the fused FD Hessian + eigensolve + score over a block
-    whose 1-deep halos the caller filled, faces not clamped.  Returns
-    the raw channel-stacked (n_out, Z, Y, X) block; the caller
-    replicates the global faces on the assembled volume
-    (``clamp_faces``)."""
+    """The per-shard entry with the JAX package's interface
+    (``hessian_principal_pallas_prepadded``): ``hessian_principal_block``
+    on views of a block padded by its 1-deep halos, so nothing is
+    copied.  Unlike the JAX kernel it clamps x instead of reading the x
+    halo columns (a mesh never splits x; the JAX package replicates the
+    x faces afterwards, to the same result).  Returns the raw
+    channel-stacked (n_out, Z, Y, X) block."""
     if blur_pad.ndim != 3 or min(blur_pad.shape) < 3:
         raise ValueError("hessian_principal_prepadded needs a (Z+2, Y+2, "
                          f"X+2) block, got {tuple(blur_pad.shape)}")
-    if blur_pad.device.type == "cpu":
-        return hessian_principal_prepadded_plain(blur_pad, sigma, decreasing,
-                                                 formula, want_v)
-    return _hessian_cuda(hessian_principal_prepadded,
-                         "visfd_hessian_principal_prepadded", blur_pad,
-                         tuple(d - 2 for d in blur_pad.shape), sigma,
-                         decreasing, formula, want_v)
-
-
-hessian_principal_prepadded.launches = 0
+    return hessian_principal_block(*_halo_views(blur_pad), sigma, decreasing,
+                                   formula, want_v)
 
 
 def clamp_faces(arr: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,8 @@ split axis.  ``halo_pad`` copies those rows from the neighbouring blocks
 slice when both blocks share a card) and zero-fills beyond the global
 faces, so a zero-padded stencil over the haloed block gives the
 single-device stencil exactly (``filter1d.hpp:93-99``).  The copies run
-outside the kernels.
+outside the kernels.  ``face_halos`` gives a kernel that reads its block
+in place the 1-deep halos alone, as four face-sized slabs.
 """
 
 from __future__ import annotations
@@ -69,3 +70,32 @@ def halo_pad_2d(vol: ShardedVolume, halo_z: int,
     exchange runs after the z exchange: its rows already carry the z
     halos."""
     return halo_pad(halo_pad(vol, halo_z, 0), halo_y, 1)
+
+
+def face_halos(vol: ShardedVolume, iz: int, iy: int):
+    """The 1-deep halos of block (iz, iy) of a plain (Z, Y, X) volume as
+    four slabs, zeros beyond the global volume: (z_lo, z_hi), the planes
+    below and above the block, (by + 2, X) with their y-corner rows
+    first and last; (y_lo, y_hi), the rows before and after it, (bz,
+    X).  A y halo from a block on the same device is a
+    view of that block and a z halo one plane and two rows put together;
+    from another device ``Tensor.to`` copies just those.  Nothing of the
+    block's size is copied."""
+    nz_m, ny_m = vol.mesh.shape
+    b = vol.blocks[iz][iy]
+    bz, by, nx = b.shape
+
+    def take(jz, jy, index, shape):
+        if 0 <= jz < nz_m and 0 <= jy < ny_m:
+            return vol.blocks[jz][jy][index].to(b.device, non_blocking=True)
+        return b.new_zeros(shape)
+
+    def z_plane(jz, z):
+        """Plane ``z`` of the blocks in row ``jz``, rows -1 .. by."""
+        return torch.cat([take(jz, iy - 1, (z, slice(-1, None)), (1, nx)),
+                          take(jz, iy, z, (by, nx)),
+                          take(jz, iy + 1, (z, slice(0, 1)), (1, nx))])
+
+    return (z_plane(iz - 1, -1), z_plane(iz + 1, 0),
+            take(iz, iy - 1, (slice(None), -1), (bz, nx)),
+            take(iz, iy + 1, (slice(None), 0), (bz, nx)))

@@ -13,8 +13,9 @@ card.
   package's blur on a sharded volume; its hand-written form is
   ``_sharded_gauss``): ``blur3`` on each haloed block, the interior
   kept, the edge normalisation from the global 1-D denominators.
-* ``hessian_principal_sharded``: 1-deep halos, the per-shard Hessian +
-  eigensolve kernel, the global faces clamped afterwards.
+* ``hessian_principal_sharded``: the per-shard Hessian + eigensolve
+  kernel on each block in place, its 1-deep halos in four face-sized
+  slabs, the global faces clamped afterwards.
 * ``tv_accumulate_sharded``: hw-deep halos of saliency, direction and
   mask, the per-shard voting kernel (dense or sparse).
 * ``sym3_score_sharded``: the vote-tensor eigen kernel on each block
@@ -33,9 +34,9 @@ import torch
 from visfd_tpu_torch.ops.blur_cuda import blur3
 from visfd_tpu_torch.ops.conv import _ones_denom_1d
 from visfd_tpu_torch.ops.eigen_cuda import (
-    _n_score_channels, hessian_principal_prepadded, sym3_score)
+    _n_score_channels, hessian_principal_block, sym3_score)
 from visfd_tpu_torch.ops.tv_cuda import tv_tables, tv_votes_prepadded
-from visfd_tpu_torch.parallel.halo import halo_pad_2d
+from visfd_tpu_torch.parallel.halo import face_halos, halo_pad_2d
 from visfd_tpu_torch.parallel.mesh import (
     Mesh, ShardedVolume, bmap, from_blocks)
 
@@ -110,12 +111,10 @@ def separable_conv3d_sharded(
 
 
 def _clamp_faces_sharded(vol: ShardedVolume) -> None:
-    """``ops.eigen_cuda.clamp_faces`` on a sharded (C, Z, Y, X) volume,
-    in place: x within each block, then y, then z across blocks (a face
-    row comes from the next block when a block is one row thick)."""
-    for _, _, b in vol.cells():
-        b[..., 0].copy_(b[..., 1])
-        b[..., -1].copy_(b[..., -2])
+    """``ops.eigen_cuda.clamp_faces`` on the y and z faces of a sharded
+    (C, Z, Y, X) volume whose x faces are clamped, in place: y, then z
+    across blocks (a face row comes from the next block when a block is
+    one row thick)."""
     nz_m, ny_m = vol.mesh.shape
     for axis in (1, 0):
         t = vol.lead + axis
@@ -136,16 +135,16 @@ def hessian_principal_sharded(
     formula: str = "planar",
     want_v: bool = True,
 ):
-    """Per-shard fused FD Hessian + principal eigensolve + score: 1-deep
-    halo exchange, ``hessian_principal_prepadded`` on each block, then
-    the global faces clamped on the assembled result.  Returns (score,
-    v) as ShardedVolumes with the conventions of
-    ``ops.eigen_cuda.hessian_principal``."""
+    """Per-shard fused FD Hessian + principal eigensolve + score:
+    ``hessian_principal_block`` reads each block in place beside its
+    four 1-deep halo slabs (``parallel.halo.face_halos``: no copy of a
+    block), then the global y and z faces are clamped on the assembled
+    result (the kernel clamps x).  Returns (score, v) as ShardedVolumes
+    with the conventions of ``ops.eigen_cuda.hessian_principal``."""
     def cell(iz, iy, b):
-        return hessian_principal_prepadded(
-            torch.nn.functional.pad(b, (1, 1)), sigma, decreasing, formula,
-            want_v)
-    out = halo_pad_2d(blur, 1, 1).with_blocks(cell)
+        return hessian_principal_block(b, *face_halos(blur, iz, iy), sigma,
+                                       decreasing, formula, want_v)
+    out = blur.with_blocks(cell)
     _clamp_faces_sharded(out)
     n_s = _n_score_channels(formula)
     score = out.with_blocks(lambda iz, iy, b: b[0] if n_s == 1 else b[:n_s])
