@@ -17,7 +17,9 @@ Phases:
    CUDA events; the voting kernel on the field the main path votes on
    (the ``-tv-best 0.05`` share of a phantom's planar score, with its
    occupancy at three granularities), on a 5%-occupied "planes" field
-   and on a 74%-occupied one; then (2b) every kernel option on small
+   and on a 74%-occupied one; the vote score with its principal vector
+   (the ``-connect`` path) timed with ``torch.linalg.eigh`` on a quarter
+   of the planes; then (2b) every kernel option on small
    volumes whose sides differ and are not multiples of a tile, the
    per-shard Hessian entry on a strided view of a block with its halo
    slabs among them;
@@ -46,7 +48,30 @@ Phases:
    (5c) ``filter_mrc -membrane … -tv …
    -mesh 4`` and the same command without ``-mesh`` on a seeded 1024 x
    1024 x 512 phantom: identical outputs, each per-shard kernel launched
-   once per block, both walls and the peak device memory.
+   once per block, both walls and the peak device memory;
+6. ``-connect``: (6c) ``filter_mrc -membrane minima 3 -tv 1.5
+   -tv-angle-exponent 4 -connect T -connect-angle 30`` on seeded 512 x
+   512 x 256 and 1024 x 1024 x 512 phantoms, T the 96th percentile of the
+   smaller phantom's stick score (printed): every kernel launched, the
+   vote score with its vector, the stage spans (gates, seeds, candidate
+   mask + compaction, candidate copy, native flood, finalize, write),
+   the candidate, seed and cluster counts, peak card memory and the
+   host's peak RSS, and the share of the 10 largest clusters' voxels
+   within 2 voxels of a phantom mid-surface; (6a) on the smaller run's
+   own score, vote and vector: the seeds and the candidate lists on the
+   card against the same functions on the CPU (identical), the discard
+   gates on a 64 x 256 x 256 crop, card against CPU, equal wherever a
+   gate's two sides differ by more than 1e-5 of the larger and the
+   saliency Hessian's principal eigenvector is well defined (the rest
+   counted), and the native flood against its Python twin on a 64^3
+   crop (identical); (6b) the C++ reference's goldens on the card, bit
+   for bit: ``-load-progress tests/golden/ref_prog`` with ``-connect
+   1e+09 -connect-angle 30 -normals-file -select-cluster 1``, ``-connect
+   5e+09 -connect-angle 10`` and the same with ``-must-link``, on a
+   zero 16^3 input, and ``-connect 37`` on ``ref_gauss.mrc``, and
+   ``-edge … -tv`` on the card against the CPU; then
+   ``-select-cluster 1 -normals-file`` on a 96 x 96 x 48 phantom, with
+   the walker's seconds per PLY vertex.
 
 A failed check is reported where it happens and the later phases still
 run; the script then exits non-zero without a result line.  On success
@@ -90,6 +115,9 @@ KERNELS = {
                                 "visfd_tpu/ops/eigen_pallas.py:352"),
     "tv_votes_prepadded": ("visfd_tpu_torch/csrc/tv.cu",
                            "visfd_tpu/ops/tv_pallas.py:423"),
+    # the vote score with its principal eigenvector (the -connect path)
+    "sym3_score+v": ("visfd_tpu_torch/csrc/eigen.cu",
+                     "visfd_tpu/ops/eigen_pallas.py:418"),
 }
 
 # The least time the card could take for a kernel's work: the larger of
@@ -104,6 +132,7 @@ FP32_OPS_PER_S = 67e12
 BLUR_OPS_PER_TAP = 2            # one FMA per tap per axis
 HESSIAN_OPS = 25 + 90 + 43      # FD stencil, eigenvalues, eigenvector
 SYM3_OPS = 90                   # eigenvalues
+EIGVEC_OPS = 43                 # the principal eigenvector
 SCORE_OPS = {"planar": 4, "linear": 3, "stick": 1, "vals": 0}
 TV_OPS_PER_TAP = 33             # per non-zero source and tap (e = 4)
 TV_DEN_OPS_PER_TAP = 2
@@ -655,40 +684,60 @@ def phase_kernels(chk, card, shape=MAIN_SHAPE, dev="cuda"):
     vote, _ = tv_votes(sal_dense, nv, sigma, **kw)
     s_k, v_k = EC.sym3_score(vote, True, "stick", True)
     raw = EC.sym3_score_plain(vote.cpu(), True, "vals", True)
-    record("sym3_score", _eigen_check(chk, "sym3_score stick+v", s_k, v_k,
-                                      raw, "stick"))
+    err = _eigen_check(chk, "sym3_score stick+v", s_k, v_k, raw, "stick")
+    record("sym3_score", err)
+    record("sym3_score+v", err)
     ms = cuda_ms(lambda: EC.sym3_score(vote, True, "stick", False), 20)
     pms = cuda_ms(lambda: EC.sym3_score_plain(vote, True, "stick", False),
                   3)
-    # the library yardstick: one torch.linalg.eigvalsh of the (N, 3, 3)
-    # matrices (built outside the timed call; stick = l2 - l1).  Through
-    # MAGMA: cuSOLVER's batched syev refuses batches of 2^16 matrices and
-    # more (CUSOLVER_STATUS_INVALID_VALUE, torch 2.11 + CUDA 12.8).  One
-    # timed call, after a warm-up on 1024 matrices: it takes about a
-    # minute.
+    ms_v = cuda_ms(lambda: EC.sym3_score(vote, True, "stick", True), 20)
+    b = bound_ms(40 * nvox, (SYM3_OPS + SCORE_OPS["stick"] + EIGVEC_OPS)
+                 * nvox)
+    print(f"  sym3_score stick+v: kernel {ms_v:.3f} ms, bound {b[0]:.3f} ms "
+          f"({b[1]}), {b[0] / ms_v:.0%} of it [{card}]", flush=True)
     del raw, s_k, v_k
-    t = vote.reshape(6, -1)
-    mats = torch.stack([t[0], t[3], t[5], t[3], t[1], t[4], t[5], t[4],
-                        t[2]], dim=-1).reshape(-1, 3, 3)
-    del t
-    backend = torch.backends.cuda.preferred_linalg_library()
-    torch.backends.cuda.preferred_linalg_library("magma")
-    try:
-        torch.linalg.eigvalsh(mats[:1024])
-        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        a.record()
-        torch.linalg.eigvalsh(mats)
-        b.record()
-        b.synchronize()
-        lms = a.elapsed_time(b)
-    finally:
-        torch.backends.cuda.preferred_linalg_library(backend)
-    del mats
+
+    def library_ms(fn, t6):
+        """One timed call of ``fn`` (torch.linalg.eigvalsh for the score,
+        eigh for the score and vectors) on the (N, 3, 3) matrices of
+        ``t6`` (built outside the timed call; stick = l2 - l1), after a
+        warm-up on 1024 of them.  Through MAGMA: cuSOLVER's batched syev
+        refuses batches of 2^16 matrices and more
+        (CUSOLVER_STATUS_INVALID_VALUE, torch 2.11 + CUDA 12.8)."""
+        t = t6.reshape(6, -1)
+        mats = torch.stack([t[0], t[3], t[5], t[3], t[1], t[4], t[5], t[4],
+                            t[2]], dim=-1).reshape(-1, 3, 3)
+        backend = torch.backends.cuda.preferred_linalg_library()
+        torch.backends.cuda.preferred_linalg_library("magma")
+        try:
+            fn(mats[:1024])
+            return timed_ms(lambda: fn(mats))[1]
+        finally:
+            torch.backends.cuda.preferred_linalg_library(backend)
+
+    # eigvalsh takes about a minute at this size
+    lms = library_ms(torch.linalg.eigvalsh, vote)
     b = bound_ms(28 * nvox, (SYM3_OPS + SCORE_OPS["stick"]) * nvox)
     record("sym3_score", 0.0, ms, pms, b, lms)
     print(f"  sym3_score stick: kernel {ms:.3f} ms, plain {pms:.3f} ms "
           f"(on the card), eigvalsh {lms:.3f} ms, bound {b[0]:.3f} ms "
           f"({b[1]}) [{card}]", flush=True)
+    # with the vector, on the first quarter of the planes (eigh takes
+    # about two and a half minutes on all of them): kernel, twin, eigh
+    # and bound (24 B read, 16 B written a voxel) on those voxels
+    slab = vote[:, :vote.shape[1] // 4].contiguous()
+    nv_s = slab[0].numel()
+    ms_v = cuda_ms(lambda: EC.sym3_score(slab, True, "stick", True), 20)
+    pms_v = cuda_ms(lambda: EC.sym3_score_plain(slab, True, "stick", True),
+                    3)
+    lms_v = library_ms(torch.linalg.eigh, slab)
+    b = bound_ms(40 * nv_s, (SYM3_OPS + SCORE_OPS["stick"] + EIGVEC_OPS)
+                 * nv_s)
+    record("sym3_score+v", 0.0, ms_v, pms_v, b, lms_v)
+    print(f"  sym3_score stick+v on {tuple(slab.shape[1:])}: kernel "
+          f"{ms_v:.3f} ms, plain {pms_v:.3f} ms (on the card), eigh "
+          f"{lms_v:.3f} ms, bound {b[0]:.3f} ms ({b[1]}), {b[0] / ms_v:.0%} "
+          f"of it [{card}]", flush=True)
     return stats
 
 
@@ -1365,6 +1414,13 @@ def phase_mesh_stages(chk, card, dev="cuda"):
           f"({b[1]}), the single-device kernel {b[0] / t1:.0%} of it; "
           f"{float((vote == 0).all(0).float().mean()):.4f} of the voxels' "
           f"vote tensors are zero [{card}]")
+    del vote_s, s1, s4
+    t_v = cuda_ms(lambda: EC.sym3_score(vote, want_v=True), 3)
+    b = bound_ms(40 * nvox, (SYM3_OPS + SCORE_OPS["stick"] + EIGVEC_OPS)
+                 * nvox)
+    print(f"  sym3_score stick+v at {nvox} voxels (the -connect path): "
+          f"kernel {t_v:.3f} ms, bound {b[0]:.3f} ms ({b[1]}), "
+          f"{b[0] / t_v:.0%} of it [{card}]", flush=True)
     return halo_ms
 
 
@@ -1447,6 +1503,391 @@ def phase_mesh_cli(chk, card, tmp, dev="cuda"):
                             f"membrane: {share:.4f}")
     return lm
 
+# ---------------------------------------------------------------------------
+# phase 6: -connect
+
+CONNECT_ARGS = "-w 1 -membrane minima 3 -tv 1.5 -tv-angle-exponent 4"
+CONNECT_QUANTILE = 0.96         # the -connect threshold's score quantile
+NORMALS_SHAPE = (48, 96, 96)    # (Z, Y, X) of the -normals-file run
+GATE_CROP = (64, 256, 256)      # (Z, Y, X) of 6a's gate comparison
+FLOOD_CROP = 64                 # side of 6a's native-vs-Python crop
+
+
+class _PeakRss:
+    """The host's peak resident memory of this process while the block
+    runs: ``/proc/self/statm`` sampled every 10 ms by a thread (the
+    machine's kernel keeps no resettable high-water mark)."""
+
+    def __enter__(self):
+        import threading
+        self.peak, self.done = 0, threading.Event()
+        page = os.sysconf("SC_PAGE_SIZE")
+
+        def sample():
+            while True:
+                with open("/proc/self/statm") as f:
+                    self.peak = max(self.peak, int(f.read().split()[1]) * page)
+                if self.done.wait(0.01):
+                    return
+        self.thread = threading.Thread(target=sample, daemon=True)
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.done.set()
+        self.thread.join()
+
+    @property
+    def gib(self) -> float:
+        return self.peak / 2**30
+
+
+class _ConnectCapture:
+    """Records the CLI's ``label_connected`` call (arguments and result)
+    and the ``want_v`` of each ``sym3_score`` call, by standing in for
+    them in ``cli.filter_mrc``; no kernel output is held."""
+
+    def __enter__(self):
+        from visfd_tpu_torch.cli import filter_mrc as TFM
+        self.mod, self.calls, self.want_v = TFM, [], []
+        self.saved = (TFM.label_connected, TFM.sym3_score)
+        connect, score = self.saved
+
+        def wrapped_connect(*args, **kwargs):
+            out = connect(*args, **kwargs)
+            self.calls.append((args, kwargs, out))
+            return out
+
+        def wrapped_score(*args, **kwargs):
+            self.want_v.append(kwargs.get("want_v"))
+            return score(*args, **kwargs)
+        TFM.label_connected, TFM.sym3_score = wrapped_connect, wrapped_score
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.label_connected, self.mod.sym3_score = self.saved
+
+
+def _connect_threshold(chk, card, tmp, shape, dev):
+    """The -connect threshold: the CONNECT_QUANTILE of the stick score
+    that ``CONNECT_ARGS`` writes for the phantom of 6c's first run."""
+    import torch
+    from visfd_tpu_torch.cli import filter_mrc as TFM
+    from visfd_tpu_torch.io import mrc
+    from visfd_tpu_torch.utils.phantom import membrane_phantom
+    from visfd_tpu_torch.utils.progress import Report
+    vol, _ = membrane_phantom(shape, seed=SEED + 60, thickness=3.0,
+                              device=dev)
+    fin, fout = os.path.join(tmp, "c_in.mrc"), os.path.join(tmp, "c_s.mrc")
+    mrc.write_mrc(fin, vol.cpu().numpy())
+    del vol
+    rc = TFM.run(["-in", fin, "-out", fout] + CONNECT_ARGS.split(),
+                 device=dev, report=Report(None))
+    score = torch.tensor(mrc.read_mrc(fout).data, device=dev)
+    os.unlink(fout)
+    thr = float(torch.quantile(score.reshape(-1)[::7], CONNECT_QUANTILE))
+    chk.check(rc == 0 and thr > 0, f"the -connect threshold T = {thr!r}, the "
+              f"{CONNECT_QUANTILE} quantile of the stick score of "
+              f"{'x'.join(map(str, shape[::-1]))} [{card}]")
+    return thr, fin
+
+
+def phase_connect_runs(chk, card, tmp, shapes=(MAIN_SHAPE, MESH_SHAPE),
+                       dev="cuda"):
+    """6c: the -connect CLI at each shape.  Returns (T, the first run's
+    launch counts, its captured label_connected call)."""
+    import torch
+    from visfd_tpu_torch.cli import filter_mrc as TFM
+    from visfd_tpu_torch.io import mrc
+    from visfd_tpu_torch.ops import blur_cuda, eigen_cuda as EC
+    from visfd_tpu_torch.ops import tv_cuda
+    from visfd_tpu_torch.utils.phantom import membrane_phantom
+    from visfd_tpu_torch.utils.progress import Report
+
+    print(f"== phase 6c: filter_mrc {CONNECT_ARGS} -connect T -connect-angle "
+          f"30 [{card}]", flush=True)
+    thr, fin0 = _connect_threshold(chk, card, tmp, shapes[0], dev)
+    wrappers = {"blur3": blur_cuda.blur3,
+                "hessian_principal": EC.hessian_principal,
+                "tv_votes": tv_cuda.tv_votes,
+                "sym3_score": EC.sym3_score}
+    spans = ("connect: gates", "connect: seeds",
+             "connect: candidate mask + compaction", "connect: candidate copy",
+             "connect: native flood", "connect: finalize",
+             "write the tomogram")
+    first = None
+    for i, shape in enumerate(shapes):
+        vol, dist = membrane_phantom(shape, seed=SEED + 60 + i,
+                                     thickness=3.0, device=dev)
+        fin = fin0 if i == 0 else os.path.join(tmp, "c_in1.mrc")
+        if i:
+            mrc.write_mrc(fin, vol.cpu().numpy())
+        del vol
+        fout = os.path.join(tmp, "c_out.mrc")
+        argv = (["-in", fin, "-out", fout] + CONNECT_ARGS.split()
+                + ["-connect", repr(thr), "-connect-angle", "30"])
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers.values():
+            w.launches = 0
+        rep = Report(None)
+        with _ConnectCapture() as ccap, _PeakRss() as rss:
+            t0 = time.perf_counter()
+            rc = TFM.run(argv, device=dev, report=rep)
+            wall = time.perf_counter() - t0
+        counts = {k: w.launches for k, w in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        label = f"{'x'.join(map(str, shape[::-1]))} (X x Y x Z)"
+        chk.check(rc == 0, f"{label} -connect {thr!r} exit {rc}")
+        chk.check(all(c > 0 for c in counts.values()),
+                  f"{label} launch counts in the -connect run: {counts}")
+        chk.check(ccap.want_v == [True] * counts["sym3_score"],
+                  f"{label} sym3_score launched with the vector: "
+                  f"{ccap.want_v}")
+        res = ccap.calls[0][2] if ccap.calls else None
+        out = torch.tensor(mrc.read_mrc(fout).data, device=dev)
+        n_cl = res.num_clusters if res is not None else -1
+        chk.check(tuple(out.shape) == shape and bool(out.isfinite().all())
+                  and n_cl > 0 and float(out.max()) == n_cl + 1,
+                  f"{label} labels {tuple(out.shape)}, finite, clusters 1.."
+                  f"{n_cl}, the rest {n_cl + 1}")
+        top = (out >= 1) & (out <= min(10, n_cl))
+        share = float((dist[top] <= 2.0).float().mean())
+        sizes = [int(v) for v in res.cluster_sizes[:10]] if res else []
+        chk.check(share >= 0.8, f"{label} share of the 10 largest clusters' "
+                                f"voxels ({sizes}) within 2 voxels of a "
+                                f"phantom mid-surface: {share:.4f}")
+        print(f"  {label}: wall {wall:.3f} s; spans: "
+              + ", ".join(f"{k} {rep.timings.get(k, float('nan')):.3f} s"
+                          for k in spans)
+              + f"; other stages: "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in rep.timings.items()
+                          if k not in spans)
+              + f"; counts {rep.counts}; peak card memory {peak:.2f} GiB; "
+              f"host peak RSS {rss.gib:.2f} GiB; {rep.format_paths()}; "
+              f"launches {counts} [{card}]",
+              flush=True)
+        if i == 0:
+            first = (counts, ccap.calls[0] if ccap.calls else None)
+        del out, dist, top, ccap, res
+        os.unlink(fout)
+        os.unlink(fin)
+        torch.cuda.empty_cache()
+    return thr, first[0], first[1]
+
+
+def phase_connect_host(chk, card, captured, thr, dev="cuda"):
+    """6a: the 6c run's own score, vote and vector: card against the
+    host."""
+    import torch
+    from visfd_tpu_torch.features.hessian import hessian_fd
+    from visfd_tpu_torch.linalg import sym3
+    from visfd_tpu_torch.segment import connect as TC
+    from visfd_tpu_torch.segment import extrema as TE
+
+    args, kw, _ = captured
+    score, vote, vec = args[0], kw["tensor"], kw["vector"]
+    print(f"== phase 6a: -connect on the card against the host, "
+          f"{tuple(score.shape)} [{card}]", flush=True)
+    seed_kw = dict(connectivity=1, find_minima=False, find_maxima=True,
+                   maxima_threshold=thr, want_label_image=False)
+    t0 = time.perf_counter()
+    got = TE.find_extrema(score, **seed_kw)
+    t_card = time.perf_counter() - t0
+    score_h = score.cpu()
+    t0 = time.perf_counter()
+    want = TE.find_extrema(score_h, **seed_kw)
+    t_host = time.perf_counter() - t0
+    chk.check(np.array_equal(got.maxima_indices, want.maxima_indices)
+              and np.array_equal(got.maxima_scores, want.maxima_scores),
+              f"find_extrema seeds card == CPU: {len(got.maxima_indices)} "
+              f"seeds ({t_card:.3f} s on the card, {t_host:.3f} s on the "
+              f"CPU)")
+
+    # the gates on a crop: equal wherever both sides of each gate differ
+    # by more than 1e-5 of the larger and the principal eigenvalue of the
+    # saliency's Hessian is separated from the next by 1e-3 of the
+    # largest (else the eigenvector the vector gate reads is ill-defined
+    # and an ulp turns it)
+    cos30 = float(np.cos(30 * np.pi / 180.0))
+    order = sym3.EigenOrder.DECREASING
+    z0 = max(0, int(0.3 * score.shape[0]) - GATE_CROP[0] // 2)
+    crop = (slice(z0, z0 + GATE_CROP[0]), slice(0, GATE_CROP[1]),
+            slice(0, GATE_CROP[2]))
+    s_c, t_c, v_c = (score[crop], vote[(slice(None),) + crop],
+                     vec[(slice(None),) + crop])
+    gate_args = (cos30, cos30, order, False, True)
+    d_card = TC.discard_gates(s_c, t_c, v_c, *gate_args).cpu()
+    s_h, t_h, v_h = (t.cpu() for t in (s_c, t_c, v_c))
+    d_host = TC.discard_gates(s_h, t_h, v_h, *gate_args)
+    hess = -hessian_fd(s_h)
+    near = torch.zeros_like(d_host)
+    for lhs, rhs in TC.gate_sides(hess, t_h.movedim(0, -1),
+                                  v_h.movedim(0, -1), cos30, cos30, order,
+                                  False):
+        big = torch.maximum(lhs.double().abs(), rhs.double().abs())
+        near |= ((lhs.double() - rhs.double()).abs() <= 1e-5 * big) & (big > 0)
+    vals, _ = sym3.principal_sym3(sym3.flat_to_full(hess), order=order)
+    ill = (vals[..., 0] - vals[..., 1]).abs() <= 1e-3 * vals.abs().amax(-1)
+    differ = d_card != d_host
+    out = differ & ~near & ~ill
+    chk.check(not bool(out.any()),
+              f"discard gates card == CPU on a {GATE_CROP} crop: "
+              f"{int(d_host.sum())} of {d_host.numel()} voxels discarded; "
+              f"{int(differ.sum())} differ, {int((differ & near).sum())} of "
+              f"them within 1e-5 of a gate ({int(near.sum())} such voxels) "
+              f"and {int((differ & ill & ~near).sum())} more with a Hessian "
+              f"eigen gap below 1e-3 ({int(ill.sum())} such voxels), "
+              f"{int(out.sum())} outside both")
+    del d_card, d_host, near, ill, differ, out, hess, vals, t_h, v_h
+
+    # the candidate lists, card against CPU, the card's gates on both
+    discard = TC.discard_gates(score, vote, vec, *gate_args)
+    parts = TC.compact_candidates(score, discard, None, vote, vec, thr, -1.0)
+    host = TC.compact_candidates(score_h, discard.cpu(), None, vote.cpu(),
+                                 vec.cpu(), thr, -1.0)
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(parts, host))
+    chk.check(same, f"candidate lists card == CPU: {len(host[0])} candidates "
+                    f"({len(host[0]) / score.numel():.4f} of the voxels), "
+                    f"{int(host[2].sum())} of them discarded")
+    del parts, host, discard
+
+    # the native flood against its Python twin on a crop
+    n = FLOOD_CROP
+    z0 = max(0, int(0.3 * score.shape[0]) - n // 2)
+    crop = (slice(z0, z0 + n), slice(0, n), slice(0, n))
+    s_c = score_h[crop].contiguous()
+    t_c = vote[(slice(None),) + crop].cpu()
+    v_c = vec[(slice(None),) + crop].cpu()
+    disc = TC.discard_gates(s_c, t_c, v_c, *gate_args).numpy()
+    res = TE.find_extrema(s_c, **seed_kw)
+    seeds = np.stack(TE.flat_to_xyz(res.maxima_indices, s_c.shape), -1)
+    t_cl = np.ascontiguousarray(t_c.movedim(0, -1).numpy())
+    v_cl = np.ascontiguousarray(v_c.movedim(0, -1).numpy())
+    fl_args = (s_c.numpy(), None, disc, seeds, res.maxima_scores,
+               len(seeds), TE.neighbor_offsets(1), -1.0, thr, t_cl, v_cl,
+               cos30, cos30, False)
+    t0 = time.perf_counter()
+    nat = TC._flood_native(*fl_args, v_cl.copy())
+    t_nat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = TC._flood_python(*fl_args, v_cl.copy())
+    t_py = time.perf_counter() - t0
+    same = (np.array_equal(nat[0], py[0]) and np.array_equal(nat[1], py[1])
+            and np.array_equal(nat[3], py[3]) and np.array_equal(nat[4], py[4])
+            and nat[5] == py[5])
+    chk.check(same, f"native flood == Python twin on a {n}^3 crop: "
+                    f"{len(seeds)} basins, {int((nat[0] < len(seeds)).sum())} "
+                    f"voxels assigned ({t_nat:.3f} s native, {t_py:.3f} s "
+                    f"Python)")
+
+
+def phase_connect_goldens(chk, card, tmp, dev="cuda"):
+    """6b: the C++ reference's goldens through the CLI on the card, bit
+    for bit (PLYs to the JAX golden tests' tolerances)."""
+    from visfd_tpu_torch.cli import filter_mrc as TFM
+    from visfd_tpu_torch.io import mrc
+    from visfd_tpu_torch.io.pointcloud import read_ply_pointcloud
+    from visfd_tpu_torch.utils.progress import Report
+
+    print(f"== phase 6b: the C++ reference's -connect goldens on the card "
+          f"[{card}]", flush=True)
+    g = os.path.join(ROOT, "tests", "golden")
+    zero = os.path.join(tmp, "zero.mrc")
+    mrc.write_mrc(zero, np.zeros((16, 16, 16), np.float32))
+    out, ply = os.path.join(tmp, "g.mrc"), os.path.join(tmp, "g.ply")
+    common = (f"-w 19.2 -in {zero} -out {out} -membrane minima 55 -tv 4 "
+              f"-tv-angle-exponent 4 -bin 2 -load-progress {g}/ref_prog")
+    cases = [
+        ("-connect 1e+09 -connect-angle 30 -normals-file {ply} "
+         "-select-cluster 1", "ref_memb_conn.mrc", "ref_memb.ply"),
+        ("-connect 5e+09 -connect-angle 10", "ref_memb_frag.mrc", None),
+        ("-connect 5e+09 -connect-angle 10 -must-link {g}/ref_ml.txt "
+         "-select-cluster 1 -normals-file {ply}", "ref_memb_ml.mrc",
+         "ref_memb_ml.ply"),
+        (None, "ref_conn.mrc", None),
+    ]
+    for extra, ref, ref_ply in cases:
+        argv = (f"-in {g}/ref_gauss.mrc -out {out} -w 1 -connect 37"
+                if extra is None else
+                common + " " + extra.format(ply=ply, g=g)).split()
+        rc = TFM.run(argv, device=dev, report=Report(None))
+        got, want = mrc.read_mrc(out).data, mrc.read_mrc(
+            os.path.join(g, ref)).data
+        nd = int((got != want).sum()) if got.shape == want.shape else -1
+        msg = f"{ref}: {nd} voxels differ"
+        ok = rc == 0 and nd == 0
+        if ref_ply:
+            (c, nrm), (c_r, n_r) = (read_ply_pointcloud(ply),
+                                    read_ply_pointcloud(
+                                        os.path.join(g, ref_ply)))
+            ok_p = c.shape == c_r.shape and bool(
+                np.allclose(c, c_r, rtol=1e-7, atol=1e-3) and np.allclose(
+                    nrm, n_r, rtol=1e-7, atol=1e-4 * np.abs(n_r).max()))
+            ok = ok and ok_p
+            msg += (f"; {ref_ply}: {len(c)} vertices ({len(c_r)} in the "
+                    f"golden), within tolerance: {ok_p}")
+        chk.check(ok, msg)
+
+
+def phase_edge_card_vs_cpu(chk, card, tmp, shape=(48, 64, 80), dev="cuda"):
+    """6b, continued: ``-edge … -tv`` (the gradient branch, voting
+    through ``features/tv.tv_dense_stick``) on the card against the CPU,
+    to the TV tolerance."""
+    import torch
+    from visfd_tpu_torch.cli import filter_mrc as TFM
+    from visfd_tpu_torch.io import mrc
+    from visfd_tpu_torch.utils.phantom import membrane_phantom
+    from visfd_tpu_torch.utils.progress import Report
+
+    print(f"== phase 6b: -edge on the card against the CPU, (Z, Y, X) = "
+          f"{shape} [{card}]", flush=True)
+    vol, _ = membrane_phantom(shape, seed=SEED + 63, thickness=3.0)
+    fin = os.path.join(tmp, "e_in.mrc")
+    mrc.write_mrc(fin, vol.numpy())
+    outs = {}
+    for d in (dev, "cpu"):
+        fout = os.path.join(tmp, f"e_{d}.mrc")
+        TFM.run(["-in", fin, "-out", fout] + "-w 1 -edge minima 1.5 -tv 1.5 "
+                "-tv-best 1.0".split(), device=d, report=Report(None))
+        outs[d] = torch.tensor(mrc.read_mrc(fout).data)
+    ok, err, atol = close(outs[dev], outs["cpu"], 2e-4, 2e-5)
+    chk.check(ok and bool(outs[dev].isfinite().all()),
+              f"-edge card == CPU to rtol 2e-4, atol 2e-5 x max: "
+              f"max|d|={err:.3g} (atol {atol:.3g})")
+
+
+def phase_connect_normals(chk, card, tmp, thr, shape=NORMALS_SHAPE,
+                          dev="cuda"):
+    """6c, continued: -select-cluster 1 -normals-file on a small phantom;
+    the walker's seconds per PLY vertex."""
+    from visfd_tpu_torch.cli import filter_mrc as TFM
+    from visfd_tpu_torch.io import mrc
+    from visfd_tpu_torch.io.pointcloud import read_ply_pointcloud
+    from visfd_tpu_torch.utils.phantom import membrane_phantom
+    from visfd_tpu_torch.utils.progress import Report
+
+    label = f"{'x'.join(map(str, shape[::-1]))} (X x Y x Z)"
+    print(f"== phase 6c: -select-cluster 1 -normals-file, {label} [{card}]",
+          flush=True)
+    vol, _ = membrane_phantom(shape, seed=SEED + 62, thickness=3.0)
+    fin, fout = os.path.join(tmp, "n_in.mrc"), os.path.join(tmp, "n_out.mrc")
+    ply = os.path.join(tmp, "n.ply")
+    mrc.write_mrc(fin, vol.numpy())
+    rep = Report(None)
+    rc = TFM.run(["-in", fin, "-out", fout] + CONNECT_ARGS.split()
+                 + ["-connect", repr(thr), "-connect-angle", "30",
+                    "-select-cluster", "1", "-normals-file", ply],
+                 device=dev, report=rep)
+    c, nrm = read_ply_pointcloud(ply)
+    t = rep.timings.get("-normals-file", float("nan"))
+    chk.check(rc == 0 and len(c) > 0 and bool(np.isfinite(c).all()
+                                              and np.isfinite(nrm).all()),
+              f"{label} -normals-file: {len(c)} vertices, finite")
+    print(f"  walker {t:.3f} s for {len(c)} vertices: "
+          f"{t / max(len(c), 1) * 1e3:.3f} ms per vertex (host) [{card}]")
+    for f in (fin, fout, ply):
+        os.unlink(f)
+
 
 def main() -> int:
     try:
@@ -1477,6 +1918,13 @@ def main() -> int:
         mesh_small = chk.run(phase_mesh_small, chk, card)
         chk.run(phase_mesh_stages, chk, card)
         mesh_launches = chk.run(phase_mesh_cli, chk, card, tmp)
+        connect = chk.run(phase_connect_runs, chk, card, tmp)
+        if connect is not None and connect[2] is not None:
+            chk.run(phase_connect_host, chk, card, connect[2], connect[0])
+        chk.run(phase_connect_goldens, chk, card, tmp)
+        chk.run(phase_edge_card_vs_cpu, chk, card, tmp)
+        if connect is not None:
+            chk.run(phase_connect_normals, chk, card, tmp, connect[0])
     print(f"total {time.perf_counter() - t_start:.1f} s")
     if chk.failed:
         print(f"chip_smoke: {len(chk.failed)} check(s) failed:",
@@ -1486,10 +1934,12 @@ def main() -> int:
         return 1
     launches, main_errs = main_path
     # launches: the main path's run (phase 3) for the single-device
-    # kernels, the -mesh run (5c) for the per-shard modes
+    # kernels, the -mesh run (5c) for the per-shard modes, the -connect
+    # run (6c) for the vote score with its vector
     launches = {**launches,
                 **{k: mesh_launches[k] for k in ("hessian_principal_block",
-                                                 "tv_votes_prepadded")}}
+                                                 "tv_votes_prepadded")},
+                "sym3_score+v": connect[1]["sym3_score"]}
     stats = {**stats, **mesh_stats}
     errs = [small, main_errs, mesh_small]
     kernels = []

@@ -189,9 +189,9 @@ def test_fraction_threshold_bit_identical(masked):
         assert got == want == np.sort(vals)[::-1][k]
 
 
-@pytest.mark.parametrize("flag", ["-connect 1e9", "-edge minima 3",
-                                  "-normals-file x.ply",
-                                  "-save-progress p", "-thresh 0.5"])
+@pytest.mark.parametrize("flag", ["-watershed minima", "-gauss 2",
+                                  "-blob minima b.txt 5 15 1.02",
+                                  "-save-progress-sharded p", "-thresh 0.5"])
 def test_cli_names_unhandled_flags(phantom, flag):
     argv = (f"-in {phantom}/in.mrc -w 1 -membrane minima 2.5 -tv 1.0 "
             f"{flag}").split()

@@ -33,6 +33,9 @@ SLICE_MODULES = [
     "visfd_tpu_torch.utils.progress", "visfd_tpu_torch.utils.phantom",
     "visfd_tpu_torch.cli.settings",
     "visfd_tpu_torch.cli.filter_mrc",
+    "visfd_tpu_torch.native", "visfd_tpu_torch.io.pointcloud",
+    "visfd_tpu_torch.segment", "visfd_tpu_torch.segment.extrema",
+    "visfd_tpu_torch.segment.connect",
 ]
 
 

@@ -2,8 +2,9 @@
 
 Port of ``visfd_tpu/utils/progress.py``.  A ``Report`` is the progress
 sink of one run (the reference's ``ostream *pReportProgress``): it
-keeps each stage's wall time and which implementation served each
-stage, and prints one grep-able summary line of the latter.  A stage
+keeps each stage's wall time, which implementation served each stage
+and the run's counts (candidates, seeds, clusters of ``-connect``), and
+prints one grep-able summary line of the paths.  A stage
 synchronises the card before it stops its clock, so the time covers the
 kernels the stage queued.
 """
@@ -25,6 +26,7 @@ class Report:
         self.stream = stream
         self.timings = {}  # stage name -> seconds (last run)
         self.paths = {}    # stage name -> implementation that served it
+        self.counts = {}   # e.g. "connect candidates" -> voxels
 
     def write(self, msg: str) -> None:
         if self.stream is not None:
@@ -38,6 +40,12 @@ class Report:
         """Record which implementation served ``stage_name`` (e.g.
         ``"tv": "cuda-sparse"``)."""
         self.paths[stage_name] = path
+
+    def record_count(self, name: str, n: int) -> None:
+        """Record (and report) a count of the run, e.g. the candidate
+        voxels of ``-connect``."""
+        self.counts[name] = int(n)
+        self.line(f"{name}: {int(n)}")
 
     def format_paths(self) -> str:
         """e.g. ``stage paths: hessian_eigen=cuda tv=cuda-sparse``."""
