@@ -41,18 +41,22 @@ Phases:
    then the sharded wrappers on small volumes whose blocks are 1, 2 and
    3 voxels thick under halos deeper than a block; (5b) every sharded
    stage (blur, Hessian, the ``-tv-best`` threshold, sparse and dense
-   voting, vote score) against its single-device counterpart at (Z, Y,
-   X) = (512, 1024, 1024), counting the voxels whose bits differ (0
-   expected), with the Hessian stage's sharded/single ratio and the vote
-   score's share of its bound, and the halo copies timed on their own;
+   voting, vote score with and without its vector) against its
+   single-device counterpart at (Z, Y, X) = (512, 1024, 1024), counting
+   the voxels whose bits differ (0 expected), with the Hessian stage's
+   sharded/single ratio and the vote score's share of its bound, and the
+   halo copies timed on their own; the vote score with its vector per
+   block also against its twin on a block's first 16 planes, timed there
+   with ``torch.linalg.eigh``;
    (5c) ``filter_mrc -membrane … -tv …
    -mesh 4`` and the same command without ``-mesh`` on a seeded 1024 x
    1024 x 512 phantom: identical outputs, each per-shard kernel launched
    once per block, both walls and the peak device memory;
 6. ``-connect``: (6c) ``filter_mrc -membrane minima 3 -tv 1.5
-   -tv-angle-exponent 4 -connect T -connect-angle 30`` on seeded 512 x
-   512 x 256 and 1024 x 1024 x 512 phantoms, T the 96th percentile of the
-   smaller phantom's stick score (printed): every kernel launched, the
+   -tv-angle-exponent 4 -connect T -connect-angle 30`` on a seeded 512 x
+   512 x 256 phantom (its 1024 x 1024 x 512 run is in 7d), T the 96th
+   percentile of that phantom's stick score (printed): every kernel
+   launched, the
    vote score with its vector, the stage spans (gates, seeds, candidate
    mask + compaction, candidate copy, native flood, finalize, write),
    the candidate, seed and cluster counts, peak card memory and the
@@ -71,14 +75,34 @@ Phases:
    zero 16^3 input, and ``-connect 37`` on ``ref_gauss.mrc``, and
    ``-edge … -tv`` on the card against the CPU; then
    ``-select-cluster 1 -normals-file`` on a 96 x 96 x 48 phantom, with
-   the walker's seconds per PLY vertex.
+   the walker's seconds per PLY vertex;
+7. the segmentation handlers and the intensity map: (7a) ``-find-minima``
+   and ``-find-maxima`` at 1024 x 1024 x 512 (a membrane phantom blurred
+   at sigma 3): walls, extrema counts, card against CPU on a crop; (7b)
+   ``-watershed minima``, the native flood, at 256 or 128 x 512 x 512
+   (whichever the time left allows; printed), its microseconds per voxel,
+   the flood against its Python twin on a crop, ``ref_gauss.mrc`` with
+   and without ``-markers`` card against CPU; (7c)
+   ``-watershed-device`` at 1024 x 1024 x 512: wall, each loop's rounds,
+   card memory and host RSS, crops against the CPU and against the host
+   flood on distinct values; (7d) ``-mesh 4`` on one card against one
+   device, bit for bit: ``-watershed-device`` (with and without
+   boundaries), ``-edge`` and ``-select-cluster 1 -normals-file``, then
+   ``-connect`` at 1024 x 1024 x 512 on one device and with ``-mesh 4``
+   (spans, card memory, host RSS, launches); (7e) ``-thresh2``,
+   ``-thresh4``, ``-clip``, ``-cl``, ``-thresh-gauss``, ``-rescale``,
+   ``-fill``, ``-mask-rect``/``-mask-sphere`` and ``-image-size``, card
+   against CPU.
 
 A failed check is reported where it happens and the later phases still
 run; the script then exits non-zero without a result line.  On success
 the second-to-last line is a JSON summary of the kernels (each with its
 time, its plain twin's, the least time the card could take for the same
-work and, where one PyTorch call computes the same function, that
-call's time) and the last line ``{"ok": true, "device": {...}}``.  TF32
+work, where one PyTorch call computes the same function that call's
+time, its largest absolute and relative error over the checks, and its
+launches in one run: the vote score with its vector has one entry for
+one device, from 6c, and one per block, from 7d's ``-mesh`` run) and
+the last line ``{"ok": true, "device": {...}}``.  TF32
 is turned off for cuDNN and matmuls (the twins use neither; the
 library yardsticks are timed in float32).
 """
@@ -115,9 +139,12 @@ KERNELS = {
                                 "visfd_tpu/ops/eigen_pallas.py:352"),
     "tv_votes_prepadded": ("visfd_tpu_torch/csrc/tv.cu",
                            "visfd_tpu/ops/tv_pallas.py:423"),
-    # the vote score with its principal eigenvector (the -connect path)
+    # the vote score with its principal eigenvector (the -connect path),
+    # on one device and per block of a -mesh run
     "sym3_score+v": ("visfd_tpu_torch/csrc/eigen.cu",
                      "visfd_tpu/ops/eigen_pallas.py:418"),
+    "sym3_score_sharded+v": ("visfd_tpu_torch/csrc/eigen.cu",
+                             "visfd_tpu/ops/eigen_pallas.py:418"),
 }
 
 # The least time the card could take for a kernel's work: the larger of
@@ -228,14 +255,34 @@ class Checks:
             return None
 
 
+class Err(tuple):
+    """A check's (max |got - want|, max |got - want| / max(|want|,
+    scale)), scale = atol / rtol: the value below which the check holds
+    a voxel to its absolute tolerance.  Formats as the first."""
+
+    def __new__(cls, abs_err=0.0, rel_err=0.0):
+        return super().__new__(cls, (float(abs_err), float(rel_err)))
+
+    def __format__(self, spec):
+        return format(self[0], spec)
+
+
+def worst(*errs):
+    """The larger absolute and the larger relative error of several
+    checks (a bare number counts as an absolute error)."""
+    errs = [e if isinstance(e, Err) else Err(e) for e in errs]
+    return Err(max(e[0] for e in errs), max(e[1] for e in errs))
+
+
 def close(got, want, rtol, atol_rel, absolute=False):
-    """(ok, max |got - want|, atol) for float tensors on any device:
-    |got - want| <= atol + rtol |want| everywhere, atol = atol_rel times
-    the largest |want| (or atol_rel itself when ``absolute``).  Prints
-    where it does not hold."""
+    """(ok, Err, atol) for float tensors on any device: |got - want| <=
+    atol + rtol |want| everywhere, atol = atol_rel times the largest
+    |want| (or atol_rel itself when ``absolute``).  Prints where it does
+    not hold."""
     got, want = got.double(), want.double()
     atol = atol_rel if absolute else atol_rel * float(want.abs().max())
     diff = (got - want).abs()
+    rel = diff / want.abs().clamp(min=max(atol / rtol, 1e-300))
     out = diff > atol + rtol * want.abs()
     if bool(out.any()):
         worst = int(((diff - atol) / want.abs().clamp(min=1e-30)).argmax())
@@ -243,7 +290,8 @@ def close(got, want, rtol, atol_rel, absolute=False):
               f"{float(want.abs().max()):.4g}; worst got "
               f"{float(got.reshape(-1)[worst]):.8g} want "
               f"{float(want.reshape(-1)[worst]):.8g}")
-    return not bool(out.any()), float(diff.max()), atol
+    return (not bool(out.any()), Err(float(diff.max()), float(rel.max())),
+            atol)
 
 
 def cuda_ms(fn, reps):
@@ -277,6 +325,26 @@ def timed_ms(fn):
 
 
 # ---------------------------------------------------------------------------
+
+def library_ms(fn, t6):
+    """One timed call of ``fn`` (torch.linalg.eigvalsh for the score, eigh
+    for the score and vectors) on the (N, 3, 3) matrices of ``t6`` (built
+    outside the timed call; stick = l2 - l1), after a warm-up on 1024 of
+    them.  Through MAGMA: cuSOLVER's batched syev refuses batches of 2^16
+    matrices and more (CUSOLVER_STATUS_INVALID_VALUE, torch 2.11 + CUDA
+    12.8)."""
+    import torch
+    t = t6.reshape(6, -1)
+    mats = torch.stack([t[0], t[3], t[5], t[3], t[1], t[4], t[5], t[4],
+                        t[2]], dim=-1).reshape(-1, 3, 3)
+    backend = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("magma")
+    try:
+        fn(mats[:1024])
+        return timed_ms(lambda: fn(mats))[1]
+    finally:
+        torch.backends.cuda.preferred_linalg_library(backend)
+
 
 def phase_card():
     import torch
@@ -513,7 +581,7 @@ def _tv_check(chk, label, got, got_den, raw):
     ok, err, _ = close(got, raw[:6], 2e-4, atol, absolute=True)
     if got_den is not None:
         ok_d, err_d, _ = close(got_den, raw[6], 2e-4, atol, absolute=True)
-        ok, err = ok and ok_d, max(err, err_d)
+        ok, err = ok and ok_d, worst(err, err_d)
     chk.check(ok, f"{label} max|d|={err:.3g}")
     return err
 
@@ -546,8 +614,8 @@ def phase_kernels(chk, card, shape=MAIN_SHAPE, dev="cuda"):
 
     def record(name, err, ms=None, plain_ms=None, bound=None,
                library_ms=None):
-        s = stats.setdefault(name, {"max_abs_err": 0.0})
-        s["max_abs_err"] = max(s["max_abs_err"], err)
+        s = stats.setdefault(name, {"err": Err()})
+        s["err"] = worst(s["err"], err)
         if ms is not None:
             s.update(ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
                      bound_by=bound[1], library_ms=library_ms)
@@ -570,7 +638,7 @@ def phase_kernels(chk, card, shape=MAIN_SHAPE, dev="cuda"):
                              num)
         ok_m, err_m, _ = close(got_m, want_m, 1e-5, 1e-6)
         chk.check(ok_m, f"masked blur hw={hw} max|d|={err_m:.3g}")
-        record("blur3", max(err, err_m))
+        record("blur3", worst(err, err_m))
         if hw == 4:
             ms = cuda_ms(lambda: blur_cuda.blur3(x, ks), 20)
             pms = cuda_ms(lambda: blur_cuda.blur3_plain(x, ks), 5)
@@ -697,24 +765,6 @@ def phase_kernels(chk, card, shape=MAIN_SHAPE, dev="cuda"):
           f"({b[1]}), {b[0] / ms_v:.0%} of it [{card}]", flush=True)
     del raw, s_k, v_k
 
-    def library_ms(fn, t6):
-        """One timed call of ``fn`` (torch.linalg.eigvalsh for the score,
-        eigh for the score and vectors) on the (N, 3, 3) matrices of
-        ``t6`` (built outside the timed call; stick = l2 - l1), after a
-        warm-up on 1024 of them.  Through MAGMA: cuSOLVER's batched syev
-        refuses batches of 2^16 matrices and more
-        (CUSOLVER_STATUS_INVALID_VALUE, torch 2.11 + CUDA 12.8)."""
-        t = t6.reshape(6, -1)
-        mats = torch.stack([t[0], t[3], t[5], t[3], t[1], t[4], t[5], t[4],
-                            t[2]], dim=-1).reshape(-1, 3, 3)
-        backend = torch.backends.cuda.preferred_linalg_library()
-        torch.backends.cuda.preferred_linalg_library("magma")
-        try:
-            fn(mats[:1024])
-            return timed_ms(lambda: fn(mats))[1]
-        finally:
-            torch.backends.cuda.preferred_linalg_library(backend)
-
     # eigvalsh takes about a minute at this size
     lms = library_ms(torch.linalg.eigvalsh, vote)
     b = bound_ms(28 * nvox, (SYM3_OPS + SCORE_OPS["stick"]) * nvox)
@@ -759,7 +809,7 @@ def phase_small_shapes(chk, card, dev="cuda"):
     errs = {}
 
     def record(name, err):
-        errs[name] = max(errs.get(name, 0.0), err)
+        errs[name] = worst(errs.get(name, Err()), err)
 
     for shape in ((21, 38, 67), (3, 7, 45)):
         x = rng.normal(size=shape).astype(np.float32)
@@ -942,7 +992,7 @@ def _check_captured(chk, calls):
             err = _eigen_check(chk, f"main path sym3_score {a['formula']} "
                                     f"{tuple(a['t6'].shape)}",
                                out[0], out[1], raw, a["formula"])
-        errs[name] = max(errs.get(name, 0.0), err)
+        errs[name] = worst(errs.get(name, Err()), err)
     return errs
 
 
@@ -1012,7 +1062,7 @@ def phase_main_path(chk, card, tmp, shapes=(MAIN_SHAPE, (128, 256, 256)),
                 print(_occupancy_line("the CLI's voting field",
                                       a.arguments["saliency"], hw))
         for k, e in _check_captured(chk, cap.calls).items():
-            errs[k] = max(errs.get(k, 0.0), e)
+            errs[k] = worst(errs.get(k, Err()), e)
         del dist, cap
         os.unlink(fin)
         os.unlink(fout)
@@ -1088,6 +1138,23 @@ def _bits_differ(a, b) -> int:
                for x, y in zip(a, b.to(a.device)))
 
 
+def _max_diff(a, b) -> Err:
+    """The Err of a ShardedVolume ``a`` held against the whole tensor
+    ``b`` (its largest |a - b|, and that over the largest |b|), block by
+    block and channel by channel."""
+    bz, by = a.block_shape
+    pre = (slice(None),) * a.lead
+    d = top = 0.0
+    for iz, iy, blk in a.cells():
+        want = b[pre + (slice(iz * bz, (iz + 1) * bz),
+                        slice(iy * by, (iy + 1) * by))]
+        for x, y in zip(blk.reshape((-1,) + blk.shape[-3:]),
+                        want.reshape((-1,) + want.shape[-3:])):
+            d = max(d, float((x - y.to(x.device)).abs().max()))
+            top = max(top, float(y.abs().max()))
+    return Err(d, d / max(top, 1e-30))
+
+
 def phase_mesh_kernels(chk, card, dev="cuda"):
     """5a: the per-shard modes against their twins on one block of the
     mesh run, with its halos; timed beside the single-device kernels on
@@ -1122,7 +1189,7 @@ def phase_mesh_kernels(chk, card, dev="cuda"):
     err = _eigen_check(chk, f"hessian_principal_block planar+v {block}",
                        out[0], out[1:4], raw, "planar")
     out = EC.hessian_principal_prepadded(bp, 1.73, True, "planar", True)
-    err = max(err, _eigen_check(
+    err = worst(err, _eigen_check(
         chk, f"hessian_principal_prepadded planar+v {block}", out[0],
         out[1:4], raw, "planar"))
     del raw, out
@@ -1134,7 +1201,7 @@ def phase_mesh_kernels(chk, card, dev="cuda"):
     b = bound_ms(4 * sum(t.numel() for t in parts) + 16 * nvox,
                  (HESSIAN_OPS + SCORE_OPS["planar"]) * nvox)
     stats["hessian_principal_block"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+        err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
         library_ms=None)
     print(f"  hessian_principal_block planar+v: kernel {ms:.3f} ms "
           f"(through hessian_principal_prepadded on views of a padded "
@@ -1185,7 +1252,7 @@ def phase_mesh_kernels(chk, card, dev="cuda"):
         real, real_v, None, block, sigma, 4, False, ratio, False))
     got, _ = tv_votes_prepadded(real, real_v, sigma, block, sparse=True,
                                 **kw)
-    err_tv = max(err_tv, _tv_check(
+    err_tv = worst(err_tv, _tv_check(
         chk, f"tv_votes_prepadded sparse, -tv-best 0.05 field {block}",
         got, None, raw))
     del raw
@@ -1203,7 +1270,7 @@ def phase_mesh_kernels(chk, card, dev="cuda"):
     b = bound_ms(*tv_work(real, nvox, real.numel(), hw, ratio, sigma,
                           False))
     stats["tv_votes_prepadded"] = dict(
-        max_abs_err=err_tv, ms=ms, plain_ms=pms, bound_ms=b[0],
+        err=err_tv, ms=ms, plain_ms=pms, bound_ms=b[0],
         bound_by=b[1], library_ms=None)
     print(f"  tv_votes_prepadded hw=3 e=4 sparse, -tv-best 0.05 field "
           f"({float((real != 0).float().mean()):.4f} occupied): kernel "
@@ -1253,8 +1320,8 @@ def phase_mesh_small(chk, card, dev="cuda"):
                            f"kernel: {nd} values differ")
         raw = EC.hessian_principal_plain(torch.tensor(x), 1.7, True, "vals",
                                          True)
-        errs["hessian_principal_block"] = max(
-            errs.get("hessian_principal_block", 0.0), _eigen_check(
+        errs["hessian_principal_block"] = worst(
+            errs.get("hessian_principal_block", Err()), _eigen_check(
                 chk, f"{label} hessian sharded {formula}", ss, vs, raw,
                 formula))
         sal = torch.where(ss > ss.quantile(0.5), ss, 0.0)
@@ -1282,8 +1349,8 @@ def phase_mesh_small(chk, card, dev="cuda"):
                    f"{' sparse' if sparse else ' dense'}")
             chk.check(nd == 0, f"{tag} sharded == single-device kernel: "
                                f"{nd} values differ")
-            errs["tv_votes_prepadded"] = max(
-                errs.get("tv_votes_prepadded", 0.0),
+            errs["tv_votes_prepadded"] = worst(
+                errs.get("tv_votes_prepadded", Err()),
                 _tv_check(chk, f"{tag} sharded", got, got_den, raw))
         sc1, _ = EC.sym3_score(want, formula="linear" if curves else "stick")
         scs, _ = SH.sym3_score_sharded(shard(want, mesh, lead=1),
@@ -1298,7 +1365,8 @@ def phase_mesh_small(chk, card, dev="cuda"):
 def phase_mesh_stages(chk, card, dev="cuda"):
     """5b: every sharded stage against its single-device counterpart on
     the card at MESH_SHAPE, each fed the same inputs; counts the voxels
-    whose bits differ and times both.  Returns the halo-copy time."""
+    whose bits differ and times both.  Returns the stats of the
+    per-block vote score with its vector (``sym3_score_sharded+v``)."""
     import torch
     from visfd_tpu_torch.ops import eigen_cuda as EC
     from visfd_tpu_torch.ops import filters as F
@@ -1414,14 +1482,49 @@ def phase_mesh_stages(chk, card, dev="cuda"):
           f"({b[1]}), the single-device kernel {b[0] / t1:.0%} of it; "
           f"{float((vote == 0).all(0).float().mean()):.4f} of the voxels' "
           f"vote tensors are zero [{card}]")
-    del vote_s, s1, s4
+    del s1, s4
+
+    # with the vector, per block (the -connect -mesh path): bit for bit
+    # the single-device kernel's, and one block's first planes against
+    # the plain twin (voxelwise, so a slab of planes stands for the block)
+    s1, v1 = EC.sym3_score(vote, want_v=True)
+    s4, v4 = SH.sym3_score_sharded(vote_s, want_v=True)
+    nd = _bits_differ(s4, s1) + _bits_differ(v4, v1)
+    chk.check(nd == 0, f"vote score + vector sharded == single device: "
+                       f"{nd} values differ")
+    err = worst(_max_diff(s4, s1), _max_diff(v4, v1))
+    del s1, v1
+    blk = vote_s.blocks[0][0]
+    slab = blk[:, :16].contiguous()
+    raw = EC.sym3_score_plain(slab.cpu(), True, "vals", True)
+    err = worst(err, _eigen_check(
+        chk, f"sym3_score_sharded stick+v, block (0, 0) of "
+             f"{tuple(blk.shape[1:])}, planes 0-15", s4.blocks[0][0][:16],
+        v4.blocks[0][0][:, :16], raw, "stick"))
+    del s4, v4, raw
     t_v = cuda_ms(lambda: EC.sym3_score(vote, want_v=True), 3)
+    t_blk = cuda_ms(lambda: SH.sym3_score_sharded(vote_s, want_v=True), 3)
     b = bound_ms(40 * nvox, (SYM3_OPS + SCORE_OPS["stick"] + EIGVEC_OPS)
                  * nvox)
     print(f"  sym3_score stick+v at {nvox} voxels (the -connect path): "
-          f"kernel {t_v:.3f} ms, bound {b[0]:.3f} ms ({b[1]}), "
-          f"{b[0] / t_v:.0%} of it [{card}]", flush=True)
-    return halo_ms
+          f"kernel {t_v:.3f} ms, sharded {t_blk:.3f} ms, bound {b[0]:.3f} ms "
+          f"({b[1]}), {b[0] / t_v:.0%} of it [{card}]", flush=True)
+    del vote_s
+    # the kernels line: kernel, twin and eigh on the slab (eigh on a whole
+    # block would take about four minutes)
+    nv_s = slab[0].numel()
+    ms = cuda_ms(lambda: EC.sym3_score(slab, True, "stick", True), 20)
+    pms = cuda_ms(lambda: EC.sym3_score_plain(slab, True, "stick", True), 3)
+    lms = library_ms(torch.linalg.eigh, slab)
+    b = bound_ms(40 * nv_s, (SYM3_OPS + SCORE_OPS["stick"] + EIGVEC_OPS)
+                 * nv_s)
+    print(f"  sym3_score_sharded stick+v, a block's planes 0-15 "
+          f"{tuple(slab.shape[1:])}: kernel {ms:.3f} ms, plain {pms:.3f} ms "
+          f"(on the card), eigh {lms:.3f} ms, bound {b[0]:.3f} ms ({b[1]}), "
+          f"{b[0] / ms:.0%} of it [{card}]", flush=True)
+    return {"sym3_score_sharded+v": dict(
+        err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+        library_ms=lms)}
 
 
 def phase_mesh_cli(chk, card, tmp, dev="cuda"):
@@ -1544,14 +1647,18 @@ class _PeakRss:
 
 class _ConnectCapture:
     """Records the CLI's ``label_connected`` call (arguments and result)
-    and the ``want_v`` of each ``sym3_score`` call, by standing in for
-    them in ``cli.filter_mrc``; no kernel output is held."""
+    and the ``want_v`` of each ``sym3_score`` call, one device or per
+    block, by standing in for them in ``cli.filter_mrc`` and
+    ``parallel.sharded``; no kernel output is held."""
 
     def __enter__(self):
         from visfd_tpu_torch.cli import filter_mrc as TFM
-        self.mod, self.calls, self.want_v = TFM, [], []
-        self.saved = (TFM.label_connected, TFM.sym3_score)
-        connect, score = self.saved
+        from visfd_tpu_torch.parallel import sharded as SH
+        self.calls, self.want_v = [], []
+        self.slots = [(TFM, "label_connected"), (TFM, "sym3_score"),
+                      (SH, "sym3_score")]
+        self.saved = [getattr(m, n) for m, n in self.slots]
+        connect, score, _ = self.saved
 
         def wrapped_connect(*args, **kwargs):
             out = connect(*args, **kwargs)
@@ -1559,13 +1666,17 @@ class _ConnectCapture:
             return out
 
         def wrapped_score(*args, **kwargs):
-            self.want_v.append(kwargs.get("want_v"))
+            self.want_v.append(kwargs.get("want_v", len(args) > 3
+                                          and args[3]))
             return score(*args, **kwargs)
-        TFM.label_connected, TFM.sym3_score = wrapped_connect, wrapped_score
+        for (m, n), fn in zip(self.slots, (wrapped_connect, wrapped_score,
+                                           wrapped_score)):
+            setattr(m, n, fn)
         return self
 
     def __exit__(self, *exc):
-        self.mod.label_connected, self.mod.sym3_score = self.saved
+        for (m, n), fn in zip(self.slots, self.saved):
+            setattr(m, n, fn)
 
 
 def _connect_threshold(chk, card, tmp, shape, dev):
@@ -1592,8 +1703,7 @@ def _connect_threshold(chk, card, tmp, shape, dev):
     return thr, fin
 
 
-def phase_connect_runs(chk, card, tmp, shapes=(MAIN_SHAPE, MESH_SHAPE),
-                       dev="cuda"):
+def phase_connect_runs(chk, card, tmp, shapes=(MAIN_SHAPE,), dev="cuda"):
     """6c: the -connect CLI at each shape.  Returns (T, the first run's
     launch counts, its captured label_connected call)."""
     import torch
@@ -1638,8 +1748,10 @@ def phase_connect_runs(chk, card, tmp, shapes=(MAIN_SHAPE, MESH_SHAPE),
         peak = torch.cuda.max_memory_allocated() / 2**30
         label = f"{'x'.join(map(str, shape[::-1]))} (X x Y x Z)"
         chk.check(rc == 0, f"{label} -connect {thr!r} exit {rc}")
-        chk.check(all(c > 0 for c in counts.values()),
-                  f"{label} launch counts in the -connect run: {counts}")
+        chk.check(all(c > 0 for c in counts.values())
+                  and counts["sym3_score"] == 1,
+                  f"{label} launch counts in the -connect run (the vote "
+                  f"score once): {counts}")
         chk.check(ccap.want_v == [True] * counts["sym3_score"],
                   f"{label} sym3_score launched with the vector: "
                   f"{ccap.want_v}")
@@ -1830,9 +1942,9 @@ def phase_connect_goldens(chk, card, tmp, dev="cuda"):
 
 
 def phase_edge_card_vs_cpu(chk, card, tmp, shape=(48, 64, 80), dev="cuda"):
-    """6b, continued: ``-edge … -tv`` (the gradient branch, voting
-    through ``features/tv.tv_dense_stick``) on the card against the CPU,
-    to the TV tolerance."""
+    """6b, continued: ``-edge … -tv`` (the gradient branch on a 1 x 1
+    grid of blocks, then ``ops/tv_cuda.tv_votes``) on the card against
+    the CPU, to the TV tolerance."""
     import torch
     from visfd_tpu_torch.cli import filter_mrc as TFM
     from visfd_tpu_torch.io import mrc
@@ -1889,6 +2001,397 @@ def phase_connect_normals(chk, card, tmp, thr, shape=NORMALS_SHAPE,
         os.unlink(f)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the segmentation handlers and the intensity map
+
+SEG_SHAPE = MESH_SHAPE          # (Z, Y, X) of 7a, 7c and the 7d timing
+SEG_CROP = (128, 256, 256)      # 7a's card-against-CPU crop
+WS_SHAPES = ((256, 512, 512), (128, 512, 512))   # 7b: the larger if time
+# 7b takes WS_SHAPES[0] only with this much of the 1200 s left: the
+# native flood takes ~3.6 us a voxel there (245 s at 256 x 512 x 512 on
+# an H100 80GB HBM3 at 700 W), and 7c-7e ~250 s more
+WS_BUDGET_S = 850.0
+PY_CROP = 48                    # 7b's native-against-Python crop
+PROP_CROP = (64, 128, 128)      # 7c's card-against-CPU crop
+DISTINCT_CROP = (24, 48, 48)    # 7c's crop against the host Meyer flood
+M7_SMALL = (32, 64, 64)         # 7d's -normals-file and boundary cases
+SEG_BLUR = 3.0                  # the phantoms' blur (sigma, voxels)
+
+
+def _seg_phantom(shape, seed, dev):
+    """A seeded membrane phantom blurred at SEG_BLUR, on the host."""
+    from visfd_tpu_torch.ops.filters import apply_gauss
+    from visfd_tpu_torch.utils.phantom import membrane_phantom
+    vol, _ = membrane_phantom(shape, seed=seed, thickness=3.0, device=dev)
+    return apply_gauss(vol, SEG_BLUR).cpu().numpy()
+
+
+def _run_cli(argv, dev, mesh=None, **kw):
+    """(exit code, wall s, Report) of one CLI run; ``mesh``: -mesh blocks
+    on these devices."""
+    from visfd_tpu_torch.cli import filter_mrc as TFM
+    from visfd_tpu_torch.utils.progress import Report
+    rep = Report(None)
+    t0 = time.perf_counter()
+    rc = TFM.run(argv, device=dev, report=rep, mesh_devices=mesh, **kw)
+    return rc, time.perf_counter() - t0, rep
+
+
+def _spans(rep):
+    return ", ".join(f"{k} {v:.3f} s" for k, v in rep.timings.items())
+
+
+def _same_files(chk, label, a, b):
+    """Two MRC outputs (and text files, when given as pairs) equal."""
+    from visfd_tpu_torch.io import mrc
+    x, y = mrc.read_mrc(a).data, mrc.read_mrc(b).data
+    nd = int((x.view(np.int32) != y.view(np.int32)).sum()) \
+        if x.shape == y.shape else -1
+    return chk.check(nd == 0, f"{label}: {nd} voxels differ")
+
+
+def phase_extrema(chk, card, tmp, dev="cuda"):
+    """7a: -find-minima and -find-maxima at SEG_SHAPE; the card against
+    the CPU on a crop.  Returns the input file (7c reads it too)."""
+    import torch
+    from visfd_tpu_torch.io import mrc
+
+    label = f"{'x'.join(map(str, SEG_SHAPE[::-1]))} (X x Y x Z)"
+    print(f"== phase 7a: -find-minima / -find-maxima, {label}, a phantom "
+          f"blurred at sigma {SEG_BLUR} [{card}]", flush=True)
+    vol = _seg_phantom(SEG_SHAPE, SEED + 70, dev)
+    fin = os.path.join(tmp, "seg_in.mrc")
+    mrc.write_mrc(fin, vol)
+    z0 = SEG_SHAPE[0] // 3
+    crop = np.ascontiguousarray(vol[z0:z0 + SEG_CROP[0], :SEG_CROP[1],
+                                    :SEG_CROP[2]])
+    del vol
+    fcrop = os.path.join(tmp, "seg_crop.mrc")
+    mrc.write_mrc(fcrop, crop)
+    fout = os.path.join(tmp, "seg_out.mrc")
+    for kind in ("minima", "maxima"):
+        txt = os.path.join(tmp, f"{kind}.txt")
+        torch.cuda.reset_peak_memory_stats()
+        with _PeakRss() as rss:
+            rc, wall, rep = _run_cli(["-in", fin, "-out", fout, "-w", "1",
+                                      f"-find-{kind}", txt], dev)
+        n = sum(1 for _ in open(txt)) if os.path.exists(txt) else 0
+        out = mrc.read_mrc(fout).data
+        chk.check(rc == 0 and n > 0 and out.shape == SEG_SHAPE
+                  and float(out.max()) == n,
+                  f"{label} -find-{kind}: {n} {kind}, label image "
+                  f"1..{float(out.max()):.0f}")
+        print(f"  -find-{kind}: wall {wall:.3f} s; {_spans(rep)}; peak card "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB;"
+              f" host peak RSS {rss.gib:.2f} GiB [{card}]", flush=True)
+        del out
+        os.unlink(txt)
+        outs = []
+        for d in (dev, "cpu"):
+            t = os.path.join(tmp, f"c_{kind}_{d}.txt")
+            o = os.path.join(tmp, f"c_{kind}_{d}.mrc")
+            _run_cli(["-in", fcrop, "-out", o, "-w", "1", f"-find-{kind}",
+                      t], d)
+            outs.append((o, open(t).read()))
+        same = outs[0][1] == outs[1][1]
+        _same_files(chk, f"-find-{kind} on a {SEG_CROP} crop, card == CPU "
+                         f"({len(outs[1][1].splitlines())} {kind}, text "
+                         f"files equal: {same})", outs[0][0], outs[1][0])
+        chk.check(same, f"-find-{kind} text files card == CPU")
+    os.unlink(fout)
+    return fin
+
+
+def phase_watershed_host(chk, card, tmp, t_start, dev="cuda"):
+    """7b: -watershed minima (the host Meyer flood, seeds on the card)."""
+    import torch
+    from visfd_tpu_torch.segment import extrema as TE
+    from visfd_tpu_torch.segment import watershed as TW
+
+    left = 1200.0 - (time.perf_counter() - t_start)
+    shape = WS_SHAPES[0] if left > WS_BUDGET_S else WS_SHAPES[1]
+    label = f"{'x'.join(map(str, shape[::-1]))} (X x Y x Z)"
+    print(f"== phase 7b: -watershed minima (native flood), {label} "
+          f"({left:.0f} s of the 1200 s left; {WS_BUDGET_S:.0f} s needed for "
+          f"{WS_SHAPES[0]}) [{card}]", flush=True)
+    from visfd_tpu_torch.io import mrc
+    vol = _seg_phantom(shape, SEED + 71, dev)
+    fin, fout = os.path.join(tmp, "ws_in.mrc"), os.path.join(tmp, "ws.mrc")
+    mrc.write_mrc(fin, vol)
+    with _PeakRss() as rss:
+        rc, wall, rep = _run_cli(["-in", fin, "-out", fout, "-w", "1",
+                                  "-watershed", "minima"], dev)
+    out = mrc.read_mrc(fout).data
+    n = rep.counts.get("watershed basins", -1)
+    chk.check(rc == 0 and n > 0 and float(out.max()) == n,
+              f"{label} -watershed minima: {n} basins, labels up to "
+              f"{float(out.max()):.0f}, boundaries "
+              f"{float((out == 0).mean()):.4f} of the voxels")
+    flood = rep.timings.get("watershed: native flood", float("nan"))
+    print(f"  wall {wall:.3f} s; {_spans(rep)}; native flood "
+          f"{flood / vol.size * 1e6:.4f} us per voxel; host peak RSS "
+          f"{rss.gib:.2f} GiB [{card}]", flush=True)
+    del out
+    os.unlink(fin)
+    os.unlink(fout)
+
+    # the native flood against its Python twin on a crop
+    c = np.ascontiguousarray(vol[:PY_CROP, :PY_CROP, :PY_CROP])
+    del vol
+    res = TE.find_extrema(torch.tensor(c, device=dev), find_maxima=False,
+                          connectivity=3, want_label_image=False)
+    locs = [TE.flat_to_xyz(int(i), c.shape) for i in res.minima_indices]
+    t0 = time.perf_counter()
+    nat = TW.watershed(torch.tensor(c, device=dev), connectivity=3).labels
+    t_nat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = TW._flood_python(c, None, locs, res.minima_scores, len(locs),
+                          TE.neighbor_offsets(3), 1.0, np.inf, True)
+    t_py = time.perf_counter() - t0
+    chk.check(np.array_equal(nat, py),
+              f"native flood == Python twin on a {PY_CROP}^3 crop: "
+              f"{len(locs)} basins ({t_nat:.3f} s native with the seeds on "
+              f"the card, {t_py:.3f} s Python)")
+
+    # ref_gauss.mrc, with and without markers: the card against the CPU
+    g = os.path.join(ROOT, "tests", "golden")
+    for extra in ([], ["-markers", os.path.join(g, "ref_markers.mrc"),
+                       "-watershed-show-boundaries"]):
+        outs = []
+        for d in (dev, "cpu"):
+            o = os.path.join(tmp, f"g_ws_{d}.mrc")
+            _run_cli(["-in", os.path.join(g, "ref_gauss.mrc"), "-out", o,
+                      "-w", "1", "-watershed", "minima"] + extra, d)
+            outs.append(o)
+        _same_files(chk, f"ref_gauss.mrc -watershed minima {' '.join(extra)}"
+                         f" card == CPU", *outs)
+
+
+def phase_watershed_device(chk, card, tmp, fin, dev="cuda"):
+    """7c: -watershed-device at SEG_SHAPE on one card; crops against the
+    CPU and against the host Meyer flood."""
+    import torch
+    from visfd_tpu_torch.io import mrc
+    from visfd_tpu_torch.segment import propagate as TP
+    from visfd_tpu_torch.segment import watershed as TW
+
+    label = f"{'x'.join(map(str, SEG_SHAPE[::-1]))} (X x Y x Z)"
+    args = ["-w", "1", "-watershed", "minima", "-watershed-device",
+            "-watershed-hide-boundaries"]
+    print(f"== phase 7c: {' '.join(args)}, {label}, one card [{card}]",
+          flush=True)
+    fout = os.path.join(tmp, "wsd.mrc")
+    torch.cuda.reset_peak_memory_stats()
+    with _PeakRss() as rss:
+        rc, wall, rep = _run_cli(["-in", fin, "-out", fout] + args, dev)
+    out = mrc.read_mrc(fout).data
+    n = rep.counts.get("watershed basins", -1)
+    chk.check(rc == 0 and n > 0 and float(out.max()) == n
+              and float(out.min()) >= 1,
+              f"{label} -watershed-device: {n} basins, every voxel in one")
+    rounds = {k: v for k, v in rep.counts.items() if "rounds" in k}
+    print(f"  wall {wall:.3f} s; {_spans(rep)}; loop iterations {rounds}; "
+          f"peak card memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB; host peak RSS {rss.gib:.2f} GiB [{card}]", flush=True)
+    vol = mrc.read_mrc(fin).data
+    del out
+    os.unlink(fout)
+
+    z0 = SEG_SHAPE[0] // 2
+    c = np.ascontiguousarray(vol[z0:z0 + PROP_CROP[0], :PROP_CROP[1],
+                                 :PROP_CROP[2]])
+    d = np.ascontiguousarray(vol[:DISTINCT_CROP[0], :DISTINCT_CROP[1],
+                                 :DISTINCT_CROP[2]])
+    del vol
+    for conn in (1, 3):
+        t0 = time.perf_counter()
+        got = TP.propagate_watershed(torch.tensor(c, device=dev),
+                                     connectivity=conn)
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = TP.propagate_watershed(c, connectivity=conn)
+        t_cpu = time.perf_counter() - t0
+        chk.check(torch.equal(got.labels.cpu(), want.labels),
+                  f"propagate_watershed connectivity {conn} on a {PROP_CROP} "
+                  f"crop, card == CPU: {want.num_basins} basins ({t_card:.3f}"
+                  f" s card, {t_cpu:.3f} s CPU)")
+    # distinct intensities (their ranks): the device watershed gives the
+    # host Meyer flood's labels, boundaries included
+    ranks = np.empty(d.size, np.float32)
+    ranks[np.argsort(d, axis=None, kind="stable")] = np.arange(d.size)
+    d = ranks.reshape(d.shape)
+    for sb in (False, True):
+        host = TW.watershed(d, show_boundaries=sb)
+        dev_ = TP.propagate_watershed(torch.tensor(d, device=dev),
+                                      show_boundaries=sb)
+        chk.check(np.array_equal(dev_.labels.cpu().numpy(), host.labels),
+                  f"device watershed == host Meyer flood on a "
+                  f"{DISTINCT_CROP} crop of distinct values, boundaries "
+                  f"{sb}: {host.num_basins} basins")
+
+
+def phase_mesh_segment(chk, card, tmp, thr, dev="cuda"):
+    """7d: -mesh 4 on the card against one device, bit for bit: the
+    device watershed, -edge and -normals-file at MAIN_SHAPE or M7_SMALL,
+    then -connect at SEG_SHAPE with its spans, card memory and host RSS
+    (the single-device run is 6c's at this size).  Returns the
+    sym3_score launches of the -connect -mesh run."""
+    import torch
+    from visfd_tpu_torch.io import mrc
+    from visfd_tpu_torch.io.pointcloud import read_ply_pointcloud
+    from visfd_tpu_torch.ops import blur_cuda, eigen_cuda as EC
+    from visfd_tpu_torch.ops import tv_cuda
+    from visfd_tpu_torch.utils.phantom import membrane_phantom
+
+    mesh_devs = [d for row in _mesh().devices for d in row]
+    print(f"== phase 7d: -mesh {MESH_DEVICES} (blocks on "
+          f"{[str(d) for d in mesh_devs]}) against one device [{card}]",
+          flush=True)
+    files = {}
+    for name, shape, blurred in (("ws", MAIN_SHAPE, True),
+                                 ("ws_small", M7_SMALL, True),
+                                 ("memb", MAIN_SHAPE, False),
+                                 ("small", M7_SMALL, False)):
+        files[name] = os.path.join(tmp, f"m7_{name}.mrc")
+        vol = (_seg_phantom(shape, SEED + 73, dev) if blurred else
+               membrane_phantom(shape, seed=SEED + 72, thickness=3.0,
+                                device=dev)[0].cpu().numpy())
+        mrc.write_mrc(files[name], vol)
+    conn = CONNECT_ARGS.split() + ["-connect", repr(thr), "-connect-angle",
+                                   "30"]
+    cases = [
+        ("ws", "-w 1 -watershed minima -watershed-device "
+               "-watershed-hide-boundaries".split(), False),
+        ("ws_small", "-w 1 -watershed minima -watershed-device".split(),
+         False),
+        ("memb", "-w 1 -edge minima 1.5 -tv 1.5 -tv-angle-exponent 4"
+         .split(), False),
+        ("small", conn + ["-select-cluster", "1", "-normals-file"], True),
+    ]
+    for name, args, ply in cases:
+        outs = []
+        for tag, mesh in (("one", None), ("mesh", mesh_devs)):
+            o = os.path.join(tmp, f"m7_{tag}.mrc")
+            p = os.path.join(tmp, f"m7_{tag}.ply")
+            argv = ["-in", files[name], "-out", o] + args + (
+                [p] if ply else []) + (["-mesh", str(MESH_DEVICES)]
+                                       if mesh else [])
+            rc, wall, rep = _run_cli(argv, dev, mesh)
+            chk.check(rc == 0, f"{' '.join(argv[4:])} exit {rc}")
+            print(f"  {tag}: wall {wall:.3f} s; {_spans(rep)}; "
+                  f"{rep.format_paths()} [{card}]", flush=True)
+            outs.append((o, p))
+        _same_files(chk, f"{' '.join(args[:5])}... on {name} -mesh "
+                         f"{MESH_DEVICES} == one device", outs[1][0],
+                    outs[0][0])
+        if ply:
+            a, b = (read_ply_pointcloud(p) for _, p in outs)
+            same = all(np.array_equal(x, y) for x, y in zip(a, b))
+            chk.check(same and len(a[0]) > 0,
+                      f"-normals-file -mesh {MESH_DEVICES} == one device: "
+                      f"{len(a[0])} vertices")
+    for f in files.values():
+        os.unlink(f)
+
+    # -connect at SEG_SHAPE, one device then -mesh 4: equal labels,
+    # spans, memory, launches
+    label = f"{'x'.join(map(str, SEG_SHAPE[::-1]))} (X x Y x Z)"
+    print(f"== phase 7d: filter_mrc {CONNECT_ARGS} -connect T -connect-angle "
+          f"30, one device and -mesh {MESH_DEVICES}, {label} [{card}]",
+          flush=True)
+    vol, dist = membrane_phantom(SEG_SHAPE, seed=SEED + 61, thickness=3.0,
+                                 device=dev)
+    fin = os.path.join(tmp, "m7_big.mrc")
+    mrc.write_mrc(fin, vol.cpu().numpy())
+    del vol
+    wrappers = {"blur3": blur_cuda.blur3,
+                "hessian_principal": EC.hessian_principal,
+                "hessian_principal_block": EC.hessian_principal_block,
+                "tv_votes": tv_cuda.tv_votes,
+                "tv_votes_prepadded": tv_cuda.tv_votes_prepadded,
+                "sym3_score": EC.sym3_score}
+    outs, counts = {}, {}
+    for tag, mesh in (("one device", None), ("-mesh", mesh_devs)):
+        fout = os.path.join(tmp, f"m7_big_{len(outs)}.mrc")
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        with _ConnectCapture() as ccap, _PeakRss() as rss:
+            rc, wall, rep = _run_cli(
+                ["-in", fin, "-out", fout] + conn + (
+                    ["-mesh", str(MESH_DEVICES)] if mesh else []), dev, mesh)
+        counts[tag] = {k: w.launches for k, w in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        res = ccap.calls[0][2] if ccap.calls else None
+        outs[tag] = mrc.read_mrc(fout).data
+        os.unlink(fout)
+        n_cl = res.num_clusters if res is not None else -1
+        chk.check(rc == 0 and n_cl > 0
+                  and float(outs[tag].max()) == n_cl + 1
+                  and all(ccap.want_v), f"{label} -connect, {tag}: clusters "
+                  f"1..{n_cl}, the vote score with its vector "
+                  f"({len(ccap.want_v)} calls)")
+        print(f"  {tag}: wall {wall:.3f} s; spans: {_spans(rep)}; counts "
+              f"{rep.counts}; peak card memory {peak:.2f} GiB; host peak RSS"
+              f" {rss.gib:.2f} GiB; {rep.format_paths()}; launches "
+              f"{counts[tag]} [{card}]", flush=True)
+    os.unlink(fin)
+    n_blocks = len(mesh_devs)
+    lm = counts["-mesh"]
+    chk.check(all(lm[k] == n_blocks for k in ("blur3", "sym3_score",
+                                              "hessian_principal_block",
+                                              "tv_votes_prepadded"))
+              and lm["hessian_principal"] == lm["tv_votes"] == 0,
+              f"-connect -mesh: each per-shard kernel launched once per "
+              f"block: {lm}")
+    one, meshed = outs["one device"], outs["-mesh"]
+    nd = int((one != meshed).sum())
+    chk.check(nd == 0, f"{label} -connect -mesh {MESH_DEVICES} == one "
+                       f"device: {nd} voxels differ")
+    top = torch.tensor((meshed >= 1) & (meshed <= min(10, meshed.max() - 1)),
+                       device=dist.device)
+    share = float((dist[top] <= 2.0).float().mean())
+    chk.check(share >= 0.8, f"share of the 10 largest clusters' voxels "
+                            f"within 2 voxels of a mid-surface: {share:.4f}")
+    del outs, dist, top
+    torch.cuda.empty_cache()
+    return lm["sym3_score"]
+
+
+INTENSITY_ARGS = [
+    "-thresh2 35 39", "-thresh4 34 36 38 40", "-clip 35 39", "-cl -1 1.5",
+    "-thresh-gauss 37 1.5", "-mask-sphere 12 14 10 8 -mask-out 0 "
+    "-rescale 2 -70", "-fill 3 -mask-rect 2 20 3 25 1 15 -mask-out -1",
+]
+
+
+def phase_intensity(chk, card, tmp, dev="cuda"):
+    """7e: the intensity map, masks and -image-size: card against CPU,
+    rtol 1e-6, atol 1e-6 of the largest value."""
+    import torch
+    from visfd_tpu_torch.io import mrc
+
+    print(f"== phase 7e: -thresh2, -thresh4, -clip, -thresh-gauss, "
+          f"-mask-sphere, -image-size: card against CPU [{card}]",
+          flush=True)
+    g = os.path.join(ROOT, "tests", "golden", "ref_gauss.mrc")
+    runs = [["-in", g, "-w", "1"] + a.split() for a in INTENSITY_ARGS]
+    runs.append("-image-size 270 220 140 -w 1 -mask-sphere 135 110 70 50 "
+                "-mask-sphere-subtract 120 100 70 20 -thresh 0.5 "
+                "-mask-out 2".split())
+    for argv in runs:
+        outs = []
+        for d in (dev, "cpu"):
+            o = os.path.join(tmp, f"i_{d}.mrc")
+            rc, _, _ = _run_cli(argv + ["-out", o], d)
+            outs.append(torch.tensor(mrc.read_mrc(o).data))
+        ok, err, _ = close(outs[0], outs[1], 1e-6, 1e-6)
+        chk.check(rc == 0 and ok and bool((outs[1] != outs[1].reshape(-1)[0])
+                                          .any()),
+                  f"{' '.join(argv[2 if argv[0] == "-in" else 0:])}: card == "
+                  f"CPU, max|d|={err:.3g}")
+
+
 def main() -> int:
     try:
         import torch  # noqa: F401
@@ -1916,7 +2419,7 @@ def main() -> int:
         chk.run(phase_card_vs_cpu, chk, card, tmp)
         mesh_stats = chk.run(phase_mesh_kernels, chk, card)
         mesh_small = chk.run(phase_mesh_small, chk, card)
-        chk.run(phase_mesh_stages, chk, card)
+        mesh_v_stats = chk.run(phase_mesh_stages, chk, card)
         mesh_launches = chk.run(phase_mesh_cli, chk, card, tmp)
         connect = chk.run(phase_connect_runs, chk, card, tmp)
         if connect is not None and connect[2] is not None:
@@ -1925,6 +2428,16 @@ def main() -> int:
         chk.run(phase_edge_card_vs_cpu, chk, card, tmp)
         if connect is not None:
             chk.run(phase_connect_normals, chk, card, tmp, connect[0])
+        seg_in = chk.run(phase_extrema, chk, card, tmp)
+        chk.run(phase_watershed_host, chk, card, tmp, t_start)
+        if seg_in is not None:
+            chk.run(phase_watershed_device, chk, card, tmp, seg_in)
+        thr = (connect if connect is not None else chk.run(
+            _connect_threshold, chk, card, tmp, MAIN_SHAPE, "cuda"))
+        mesh_v = None
+        if thr is not None:
+            mesh_v = chk.run(phase_mesh_segment, chk, card, tmp, thr[0])
+        chk.run(phase_intensity, chk, card, tmp)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     if chk.failed:
         print(f"chip_smoke: {len(chk.failed)} check(s) failed:",
@@ -1935,20 +2448,23 @@ def main() -> int:
     launches, main_errs = main_path
     # launches: the main path's run (phase 3) for the single-device
     # kernels, the -mesh run (5c) for the per-shard modes, the -connect
-    # run (6c) for the vote score with its vector
+    # runs for the vote score with its vector: one device (6c) and, per
+    # block, -mesh (7d)
     launches = {**launches,
                 **{k: mesh_launches[k] for k in ("hessian_principal_block",
                                                  "tv_votes_prepadded")},
-                "sym3_score+v": connect[1]["sym3_score"]}
-    stats = {**stats, **mesh_stats}
+                "sym3_score+v": connect[1]["sym3_score"],
+                "sym3_score_sharded+v": mesh_v}
+    stats = {**stats, **mesh_stats, **mesh_v_stats}
     errs = [small, main_errs, mesh_small]
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         s = stats[name]
-        err = max([s["max_abs_err"]] + [e.get(name, 0.0) for e in errs])
+        err = worst(s["err"], *[e.get(name, Err()) for e in errs])
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": err, "ms": s["ms"],
+                        "max_abs_err": err[0], "max_rel_err": err[1],
+                        "ms": s["ms"],
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"],
                         "library_ms": s["library_ms"]})

@@ -3,8 +3,9 @@ ops/blur_cuda) and binning (ops/resample) against the JAX package.
 
 One seeded numpy input goes through both packages.  The JAX blur kernel
 runs in interpret mode (as the JAX package's tests run it on a CPU);
-here the port takes the kernel's plain twin, and the CUDA kernel is
-held against that twin on a card.  Tolerance: rtol 1e-5, atol 1e-6 of
+here the port takes the kernel's plain twin (the CUDA kernel is held
+against that twin on a card in tests/test_torch_cuda_kernels.py).
+Tolerance: rtol 1e-5, atol 1e-6 of
 the largest magnitude (float32 sums of up to 3 x 61 taps taken in
 another order).
 """
@@ -21,7 +22,7 @@ from visfd_tpu.ops import resample as jresample
 from visfd_tpu.ops.blur_pallas import blur3_pallas
 from visfd_tpu_torch.convert import to_numpy, to_torch
 from visfd_tpu_torch.ops import blur_cuda, conv, filters, resample
-from visfd_tpu_torch.ops.blur_cuda import blur3, blur3_plain
+from visfd_tpu_torch.ops.blur_cuda import blur3
 
 SHAPE = (12, 20, 33)
 
@@ -32,13 +33,6 @@ def _few_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(prev)
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (chip_smoke.py runs this on one)")
-    return torch.device("cuda")
 
 
 def _close(got, want):
@@ -129,20 +123,3 @@ def test_blur_smem_plan_fits_up_to_the_cap():
             assert nbytes <= 232448
     assert blur_cuda.smem_plan(cap + 1, cap + 1, cap + 1) is None
     assert blur_cuda.smem_plan(4, 4, 4) == (8, 4 * (3 * 40 * 40 + 2 * 32 * 40))
-
-
-@pytest.mark.parametrize("field", ["normal", "top5"])
-@pytest.mark.parametrize("hw", [4, 5])
-def test_blur3_cuda_kernel_matches_twin(cuda, hw, field):
-    x, mask = _inputs(4)
-    if field == "top5":  # scattered, as -tv-best 0.05 leaves a field
-        x = np.where(x >= np.quantile(x, 0.95), x, 0.0).astype(np.float32)
-    ks = ASYM if hw == 4 else _gauss(2.0, hw)
-    xc = to_torch(x, cuda)
-    got = blur3(xc, ks)
-    torch.cuda.synchronize()
-    want = blur3_plain(xc, [to_torch(k, cuda) for k in ks])
-    _close(to_numpy(got), to_numpy(want))
-    got_m = conv.separable_conv3d(xc, ks, mask=to_torch(mask, cuda))
-    want_m = conv.separable_conv3d(to_torch(x), ks, mask=to_torch(mask))
-    _close(to_numpy(got_m), to_numpy(want_m))

@@ -13,8 +13,9 @@
   the TV tolerance (rtol 2e-4, atol 2e-5 of the largest output);
   ``-save-progress`` writes .rec files equal to JAX's to atol 5e-6 of
   the largest, and ``-load-progress`` of them gives JAX's labels.
-* The refusals: ``-mesh`` with ``-connect``, ``-edge`` or
-  ``-normals-file``, and the JAX package's orbax checkpoints.
+* The refusals: the JAX package's orbax checkpoints (``-mesh`` with
+  ``-connect``, ``-edge`` and ``-normals-file`` runs:
+  tests/test_torch_cli_segment.py).
 """
 
 import pathlib
@@ -224,9 +225,6 @@ def test_save_load_progress_under_mesh(phantom):
 
 
 @pytest.mark.parametrize("flag,match", [
-    ("-mesh 4 -connect 0.1", "-connect, -edge or -normals-file with -mesh"),
-    ("-mesh 4 -normals-file n.ply", "with -mesh"),
-    ("-mesh 4 -edge minima 1.5", "with -mesh"),
     ("-save-progress-sharded p", "-save-progress-sharded: an orbax"),
     ("-load-progress-sharded p", "-load-progress-sharded: an orbax"),
 ])

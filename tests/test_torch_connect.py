@@ -30,7 +30,7 @@ from visfd_tpu.ops.filters import apply_gauss
 from visfd_tpu.segment import connect as JC
 from visfd_tpu.segment import extrema as JE
 from visfd_tpu_torch import native
-from visfd_tpu_torch.features.hessian import hessian_fd
+from visfd_tpu_torch.features.hessian import fd_slab, hessian_fd
 from visfd_tpu_torch.linalg import sym3 as tsym3
 from visfd_tpu_torch.segment import connect as TC
 from visfd_tpu_torch.segment import extrema as TE
@@ -44,13 +44,6 @@ def _few_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(prev)
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (chip_smoke.py runs this on one)")
-    return torch.device("cuda")
 
 
 def _smooth(shape, seed, sigma=1.5):
@@ -208,7 +201,7 @@ def test_find_extrema_takes_both_paths(monkeypatch):
 def test_hessian_slab_equals_whole_volume(fields, z0, z1):
     sal = torch.tensor(fields[0])
     want = hessian_fd(sal)[z0:z1]
-    got = TC._hessian_slab(sal, z0, z1)
+    got = fd_slab(sal, z0, z1, 0, sal.shape[1])
     assert torch.equal(got, want)
 
 
@@ -383,17 +376,3 @@ def test_native_build_failure_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(native.shutil, "which", lambda name: None)
     with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
         native.build()
-
-
-def test_label_connected_card_matches_cpu(fields, cuda):
-    """Gates, seeds and compaction on the card give the CPU's labels."""
-    sal, t6, v3, mask = fields
-    kw = dict(threshold_saliency=float(np.percentile(sal, 75)),
-              **{k: v for k, v in CONNECT_CASES["gates-unsigned"].items()
-                 if k != "gates"})
-    outs = [TC.label_connected(torch.tensor(sal, device=d),
-                               mask=torch.tensor(mask, device=d),
-                               tensor=_cm(t6).to(d), vector=_cm(v3).to(d),
-                               **kw)
-            for d in (cuda, "cpu")]
-    np.testing.assert_array_equal(outs[0].labels, outs[1].labels)

@@ -1,0 +1,340 @@
+"""The port's CUDA kernels and card paths against their plain twins.
+
+Imports torch and the port only (no jax), so the file runs where the
+card is, which has no jax; tests/conftest.py imports jax, so there it
+runs without it:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py
+
+Every case carries the ``cuda`` marker and skips without a card.  The
+inputs are small seeded volumes whose sides differ; the tolerances are
+chip_smoke.py's: the blur rtol 1e-5 / atol 1e-6 of the largest value,
+the eigen scores rtol 1e-5 / atol 1e-6 (planar) or 1e-4 / 1e-5, the
+principal vectors |v.v'| > 1 - 1e-4 where the eigenvalue is separated,
+the voting rtol 2e-4 / atol 2e-5, sparse voting against dense rtol 3e-7;
+the per-shard kernels and every label exactly.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from visfd_tpu_torch.cli import filter_mrc as TFM
+from visfd_tpu_torch.convert import to_numpy, to_torch
+from visfd_tpu_torch.io import mrc
+from visfd_tpu_torch.ops import conv, eigen_cuda as EC
+from visfd_tpu_torch.ops import kernels as K
+from visfd_tpu_torch.ops.blur_cuda import blur3, blur3_plain
+from visfd_tpu_torch.ops.filters import apply_gauss
+from visfd_tpu_torch.ops.tv_cuda import tv_votes
+from visfd_tpu_torch.parallel import sharded as TSH
+from visfd_tpu_torch.parallel.gather import to_host_np
+from visfd_tpu_torch.parallel.mesh import make_mesh, shard
+from visfd_tpu_torch.parallel.sharded_features import (
+    find_extrema_sharded, propagate_watershed_sharded)
+from visfd_tpu_torch.segment import connect as TC
+from visfd_tpu_torch.segment import extrema as TE
+from visfd_tpu_torch.segment.propagate import propagate_watershed
+from visfd_tpu_torch.segment.watershed import watershed
+from visfd_tpu_torch.utils.phantom import membrane_phantom
+from visfd_tpu_torch.utils.progress import Report
+
+pytestmark = pytest.mark.cuda
+
+SIGMA = 1.7
+RATIO = float(np.sqrt(2.0))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: python -m pytest --noconftest "
+                    "tests/test_torch_cuda_kernels.py on one")
+    return torch.device("cuda")
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+# --- blur ------------------------------------------------------------------
+
+# an asymmetric kernel set: a flipped (correlation instead of
+# convolution) blur would pass every check with a Gaussian
+ASYM = (np.array([0.1, 0.5, 0.25, 0.1, 0.05], np.float32),
+        np.array([0.6, 0.3, 0.1], np.float32),
+        np.array([0.05, 0.1, 0.15, 0.2, 0.3, 0.15, 0.05], np.float32))
+
+
+def _close_blur(got, want):
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=1e-5,
+                               atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("field", ["normal", "top5"])
+@pytest.mark.parametrize("hw", [4, 5])
+def test_blur3_cuda_kernel_matches_twin(cuda, hw, field):
+    rng = _rng(4)
+    x = rng.normal(size=(12, 20, 33)).astype(np.float32)
+    mask = (rng.uniform(size=x.shape) > 0.3).astype(np.float32)
+    if field == "top5":  # scattered, as -tv-best 0.05 leaves a field
+        x = np.where(x >= np.quantile(x, 0.95), x, 0.0).astype(np.float32)
+    ks = ASYM if hw == 4 else tuple(K.gauss_kernel_1d(2.0, hw)
+                                    for _ in range(3))
+    xc = to_torch(x, cuda)
+    got = blur3(xc, ks)
+    torch.cuda.synchronize()
+    want = blur3_plain(xc, [to_torch(k, cuda) for k in ks])
+    _close_blur(to_numpy(got), to_numpy(want))
+    got_m = conv.separable_conv3d(xc, ks, mask=to_torch(mask, cuda))
+    want_m = conv.separable_conv3d(to_torch(x), ks, mask=to_torch(mask))
+    _close_blur(to_numpy(got_m), to_numpy(want_m))
+
+
+# --- the eigen kernels -----------------------------------------------------
+
+@pytest.fixture(scope="module")
+def blur():
+    return _rng(0).normal(size=(12, 20, 33)).astype(np.float32)
+
+
+def _close_eigen(got, want, formula):
+    rtol, atol = (1e-5, 1e-6) if formula == "planar" else (1e-4, 1e-5)
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=rtol,
+                               atol=atol * np.abs(want).max())
+
+
+def _same_direction(v, v_ref, vals):
+    """|v . v_ref| ~ 1 where the principal eigenvalue is separated;
+    channel-last (..., 3) fields, vals (..., 3) in solver order."""
+    gap = np.abs(vals[..., 0] - vals[..., 1])
+    well = gap > 1e-3 * np.abs(vals).max()
+    assert well.mean() > 0.95
+    assert np.abs((v * v_ref).sum(-1))[well].min() > 1 - 1e-4
+
+
+def _block_and_halos(x, z0, y0, bz, by):
+    """The (bz, by, X) block of ``x`` at (z0, y0) and its four 1-deep
+    halo slabs, cut from the volume zero-padded in z and y."""
+    p = np.pad(x, ((1, 1), (1, 1), (0, 0)))
+    z, y = z0 + 1, y0 + 1
+    parts = (p[z:z + bz, y:y + by], p[z - 1, y - 1:y + by + 1],
+             p[z + bz, y - 1:y + by + 1], p[z:z + bz, y - 1],
+             p[z:z + bz, y + by])
+    return [to_torch(np.ascontiguousarray(a)) for a in parts]
+
+
+@pytest.mark.parametrize("formula", ["planar", "linear", "stick", "vals"])
+def test_hessian_block_cuda_matches_twin(cuda, blur, formula):
+    """The per-shard kernel against its twin, on a block inside the
+    volume and on one at its corner (zero halos), both orders, with and
+    without the vector."""
+    for (z0, y0, bz, by), decreasing in (((4, 6, 5, 9), True),
+                                         ((0, 0, 7, 3), False)):
+        parts = _block_and_halos(blur, z0, y0, bz, by)
+        vals = to_numpy(EC.hessian_principal_block(
+            *parts, SIGMA, decreasing, "vals", False), channels_last=True)
+        want = EC.hessian_principal_block(*parts, SIGMA, decreasing, formula,
+                                          True)
+        ns = 3 if formula == "vals" else 1
+        for want_v in (True, False):
+            got = EC.hessian_principal_block(*[p.to(cuda) for p in parts],
+                                             SIGMA, decreasing, formula,
+                                             want_v)
+            assert got.shape[0] == ns + (3 if want_v else 0)
+            _close_eigen(to_numpy(got[:ns]), to_numpy(want[:ns]), formula)
+            if want_v:
+                _same_direction(to_numpy(got[ns:], channels_last=True),
+                                to_numpy(want[ns:], channels_last=True),
+                                vals)
+
+
+@pytest.mark.parametrize("formula", ["planar", "linear", "stick", "vals"])
+def test_eigen_cuda_kernels_match_twins(cuda, blur, formula):
+    for decreasing in (True, False):
+        got = EC.hessian_principal(to_torch(blur, cuda), SIGMA,
+                                   decreasing=decreasing, formula=formula,
+                                   want_v=True)
+        want = EC.hessian_principal(to_torch(blur), SIGMA,
+                                    decreasing=decreasing, formula=formula,
+                                    want_v=True)
+        _close_eigen(to_numpy(got[0]), to_numpy(want[0]), formula)
+        vals = to_numpy(EC.hessian_principal(
+            to_torch(blur), SIGMA, decreasing=decreasing, formula="vals",
+            want_v=False)[0], channels_last=True)
+        _same_direction(to_numpy(got[1], channels_last=True),
+                        to_numpy(want[1], channels_last=True), vals)
+    t6 = _rng(7).normal(size=(6, 9, 17, 40)).astype(np.float32)
+    got = EC.sym3_score(to_torch(t6, cuda), formula=formula, want_v=True)
+    want = EC.sym3_score(to_torch(t6), formula=formula, want_v=True)
+    _close_eigen(to_numpy(got[0]), to_numpy(want[0]), formula)
+
+
+# --- voting ----------------------------------------------------------------
+
+TV_SHAPE = (12, 20, 36)
+TV_CASES = {
+    # name: (hw, exponent, curves, masked, nvec channel-major)
+    "hw1_e2": (1, 2, False, False, False),
+    "hw2_e3_cm": (2, 3, False, False, True),
+    "hw3_e4_sparse": (3, 4, False, False, False),
+    "hw2_e4_mask_den": (2, 4, False, True, True),
+    "hw2_e4_curves": (2, 4, True, False, False),
+}
+
+
+def _tv_inputs(field):
+    rng = _rng(21)
+    sal = rng.uniform(0, 1, size=TV_SHAPE).astype(np.float32)
+    sal[sal > 0.05] = 0.0
+    v = rng.normal(size=TV_SHAPE + (3,)).astype(np.float32)
+    v /= np.linalg.norm(v, axis=-1, keepdims=True)
+    mask = (rng.uniform(size=TV_SHAPE) > 0.25).astype(np.float32)
+    if field == "top5":   # the top 5% of a random score
+        score = _rng(22).normal(size=TV_SHAPE).astype(np.float32)
+        sal = np.where(score >= np.quantile(score, 0.95), score,
+                       0.0).astype(np.float32)
+    return sal, v, mask
+
+
+@pytest.mark.parametrize("field", ["uniform", "top5"])
+@pytest.mark.parametrize("case", list(TV_CASES))
+def test_tv_cuda_kernel_matches_twin(cuda, case, field):
+    hw, e, curves, masked, cm = TV_CASES[case]
+    sal, v, mask = _tv_inputs(field)
+    nv = np.moveaxis(v, -1, 0) if cm else v
+    sigma = hw / RATIO + 1e-6   # floor(sigma * sqrt(2)) == hw
+    kw = dict(exponent=e, detect_curves=curves, truncate_ratio=RATIO,
+              want_denominator=masked, channel_major=True,
+              nvec_channel_major=cm)
+    want, want_den = tv_votes(to_torch(sal), to_torch(nv), sigma,
+                              mask_src=to_torch(mask) if masked else None,
+                              **kw)
+    outs = []
+    for sparse in (False, True):
+        got, got_den = tv_votes(
+            to_torch(sal, cuda), to_torch(nv, cuda), sigma,
+            mask_src=to_torch(mask, cuda) if masked else None,
+            sparse=sparse, **kw)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(to_numpy(got), to_numpy(want),
+                                   rtol=2e-4, atol=2e-5)
+        if masked:
+            np.testing.assert_allclose(to_numpy(got_den), to_numpy(want_den),
+                                       rtol=2e-4, atol=2e-5)
+        outs.append(to_numpy(got))
+    np.testing.assert_allclose(outs[1], outs[0], rtol=3e-7, atol=0)
+
+
+# --- the -mesh kernels -----------------------------------------------------
+
+def test_sharded_kernels_equal_single_on_card(cuda):
+    """On one card with a (2, 2) mesh: the per-shard kernels give the
+    single-device kernels' floats exactly."""
+    mesh = make_mesh(4, devices=[cuda] * 4)
+    shape = (32, 40, 48)
+    rng = _rng(13)
+    sal = rng.uniform(0, 1, size=shape).astype(np.float32)
+    sal[sal < 0.4] = 0.0
+    v = rng.normal(size=(3,) + shape).astype(np.float32)
+    v /= np.linalg.norm(v, axis=0, keepdims=True)
+    mask = (rng.uniform(size=shape) > 0.25).astype(np.float32)
+    s_t, v_t, m_t = (torch.as_tensor(a, device=cuda) for a in (sal, v, mask))
+    want, want_den = tv_votes(s_t, v_t, 1.5, mask_src=m_t,
+                              want_denominator=True, truncate_ratio=RATIO,
+                              channel_major=True, nvec_channel_major=True)
+    got, got_den = TSH.tv_accumulate_sharded(
+        shard(sal, mesh), shard(v, mesh, lead=1), shard(mask, mesh), 1.5, 4,
+        False, RATIO, True, sparse=True)
+    assert np.array_equal(to_host_np(got), want.cpu().numpy())
+    assert np.array_equal(to_host_np(got_den), want_den.cpu().numpy())
+    ws, wv = EC.hessian_principal(s_t, 1.5)
+    gs, gv = TSH.hessian_principal_sharded(shard(sal, mesh), 1.5)
+    assert np.array_equal(to_host_np(gs), ws.cpu().numpy())
+    assert np.array_equal(to_host_np(gv), wv.cpu().numpy())
+    ss, sv = EC.sym3_score(want, want_v=True)
+    gs, gv = TSH.sym3_score_sharded(got, want_v=True)
+    assert np.array_equal(to_host_np(gs), ss.cpu().numpy())
+    assert np.array_equal(to_host_np(gv), sv.cpu().numpy())
+
+
+# --- the CLI and the segmentation on the card ------------------------------
+
+def test_cli_card_matches_cpu(cuda, tmp_path):
+    """The CLI with its CUDA kernels against the CLI with the twins
+    (dense voting), to the TV tolerance."""
+    vol, _ = membrane_phantom((20, 28, 40), seed=3, thickness=2.5)
+    mrc.write_mrc(str(tmp_path / "in.mrc"), vol.numpy())
+    outs = []
+    for dev in (cuda, "cpu"):
+        out = tmp_path / f"card_{torch.device(dev).type}.mrc"
+        assert TFM.run(f"-in {tmp_path}/in.mrc -out {out} -w 1 -membrane "
+                       f"minima 2.5 -tv 1.0 -tv-best 1.0".split(),
+                       device=dev, report=Report(None)) == 0
+        outs.append(mrc.read_mrc(str(out)).data)
+    a, b = outs[1], outs[0]
+    assert np.isclose(b, a, rtol=2e-4, atol=2e-5 * np.abs(a).max()).all()
+
+
+def _smooth(shape, seed, sigma=1.5):
+    x = torch.tensor(_rng(seed).normal(size=shape).astype(np.float32))
+    return apply_gauss(x, sigma).numpy()
+
+
+def test_label_connected_card_matches_cpu(cuda):
+    """Gates, seeds and compaction on the card (one device and a (2, 2)
+    mesh of blocks on it) give the CPU's labels."""
+    shape = (12, 14, 17)
+    rng = _rng(5)
+    sal = _smooth(shape, 5)
+    t6 = rng.normal(size=(6,) + shape).astype(np.float32)
+    v3 = rng.normal(size=(3,) + shape).astype(np.float32)
+    mask = (rng.uniform(size=shape) > 0.1).astype(np.float32)
+    kw = dict(threshold_saliency=float(np.percentile(sal, 75)),
+              threshold_tensor_saliency=0.3, threshold_vector_saliency=0.2,
+              threshold_tensor_neighbor=0.1, threshold_vector_neighbor=0.4,
+              consider_dot_product_sign=False, standardize_vector_sign=True)
+    want = TC.label_connected(torch.tensor(sal), mask=torch.tensor(mask),
+                              tensor=torch.tensor(t6),
+                              vector=torch.tensor(v3), **kw)
+    got = TC.label_connected(*(torch.tensor(a, device=cuda)
+                               for a in (sal,)), mask=torch.tensor(
+        mask, device=cuda), tensor=torch.tensor(t6, device=cuda),
+        vector=torch.tensor(v3, device=cuda), **kw)
+    np.testing.assert_array_equal(got.labels, want.labels)
+    mesh = make_mesh(4, devices=[cuda] * 4)
+    meshed = TC.label_connected(
+        shard(sal, mesh), mask=shard(mask, mesh),
+        tensor=shard(t6, mesh, lead=1), vector=shard(v3, mesh, lead=1), **kw)
+    np.testing.assert_array_equal(meshed.labels, got.labels)
+
+
+@pytest.mark.parametrize("kind", ["smooth", "integers"])
+def test_segmentation_card_matches_cpu(cuda, kind):
+    """find_extrema, the host flood's seeds and the device watershed
+    (one device and a (2, 2) mesh on the card) against the CPU: equal
+    lists and labels."""
+    x = _smooth((16, 20, 23), 9)
+    if kind == "integers":
+        x = np.round(x * 4).astype(np.float32)
+    mask = (_rng(10).uniform(size=x.shape) > 0.1).astype(np.float32)
+    xc, mc = torch.tensor(x, device=cuda), torch.tensor(mask, device=cuda)
+    a = TE.find_extrema(xc, mask=mc)
+    b = TE.find_extrema(torch.tensor(x), mask=torch.tensor(mask))
+    mesh = make_mesh(4, devices=[cuda] * 4)
+    c = find_extrema_sharded(x, mesh, mask=mask)
+    for f in ("minima_indices", "minima_scores", "maxima_indices",
+              "maxima_scores", "label_image"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+        np.testing.assert_array_equal(getattr(c, f), getattr(b, f))
+    kw = dict(mask=mask, show_boundaries=True)
+    np.testing.assert_array_equal(watershed(xc, **kw).labels,
+                                  watershed(x, **kw).labels)
+    want = propagate_watershed(x, **kw).labels.numpy()
+    np.testing.assert_array_equal(
+        propagate_watershed(xc, mask=mc, show_boundaries=True)
+        .labels.cpu().numpy(), want)
+    np.testing.assert_array_equal(
+        to_host_np(propagate_watershed_sharded(x, mesh, **kw).labels), want)

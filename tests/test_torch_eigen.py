@@ -36,13 +36,6 @@ def _few_threads():
     torch.set_num_threads(prev)
 
 
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (chip_smoke.py runs this on one)")
-    return torch.device("cuda")
-
-
 @pytest.fixture(scope="module")
 def blur():
     rng = np.random.default_rng(0)
@@ -241,48 +234,3 @@ def test_hessian_prepadded_is_the_block_entry_on_views():
             xp[1:-1, 1:-1, 1:-1], xp[0, :, 1:-1], xp[-1, :, 1:-1],
             xp[1:-1, 0, 1:-1], xp[1:-1, -1, 1:-1], SIGMA, formula=formula)
         np.testing.assert_array_equal(to_numpy(got), to_numpy(want))
-
-
-@pytest.mark.parametrize("formula", ["planar", "linear", "stick", "vals"])
-def test_hessian_block_cuda_matches_twin(cuda, blur, formula):
-    """The per-shard kernel against its twin, on a block inside the
-    volume and on one at its corner (zero halos), both orders, with and
-    without the vector."""
-    for (z0, y0, bz, by), decreasing in (((4, 6, 5, 9), True),
-                                         ((0, 0, 7, 3), False)):
-        parts = _block_and_halos(blur, z0, y0, bz, by)
-        vals = to_numpy(EC.hessian_principal_block(
-            *parts, SIGMA, decreasing, "vals", False), channels_last=True)
-        want = EC.hessian_principal_block(*parts, SIGMA, decreasing, formula,
-                                          True)
-        ns = 3 if formula == "vals" else 1
-        for want_v in (True, False):
-            got = EC.hessian_principal_block(*[p.to(cuda) for p in parts],
-                                             SIGMA, decreasing, formula,
-                                             want_v)
-            assert got.shape[0] == ns + (3 if want_v else 0)
-            _close(to_numpy(got[:ns]), to_numpy(want[:ns]), formula)
-            if want_v:
-                _same_direction(to_numpy(got[ns:], channels_last=True),
-                                to_numpy(want[ns:], channels_last=True),
-                                vals)
-
-
-@pytest.mark.parametrize("formula", ["planar", "linear", "stick", "vals"])
-def test_eigen_cuda_kernels_match_twins(cuda, blur, t6, formula):
-    for decreasing in (True, False):
-        got = EC.hessian_principal(to_torch(blur, cuda), SIGMA,
-                                   decreasing=decreasing, formula=formula,
-                                   want_v=True)
-        want = EC.hessian_principal(to_torch(blur), SIGMA,
-                                    decreasing=decreasing, formula=formula,
-                                    want_v=True)
-        _close(to_numpy(got[0]), to_numpy(want[0]), formula)
-        vals = to_numpy(EC.hessian_principal(
-            to_torch(blur), SIGMA, decreasing=decreasing, formula="vals",
-            want_v=False)[0], channels_last=True)
-        _same_direction(to_numpy(got[1], channels_last=True),
-                        to_numpy(want[1], channels_last=True), vals)
-    got = EC.sym3_score(to_torch(t6, cuda), formula=formula, want_v=True)
-    want = EC.sym3_score(to_torch(t6), formula=formula, want_v=True)
-    _close(to_numpy(got[0]), to_numpy(want[0]), formula)

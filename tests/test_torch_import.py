@@ -35,14 +35,21 @@ SLICE_MODULES = [
     "visfd_tpu_torch.cli.filter_mrc",
     "visfd_tpu_torch.native", "visfd_tpu_torch.io.pointcloud",
     "visfd_tpu_torch.segment", "visfd_tpu_torch.segment.extrema",
-    "visfd_tpu_torch.segment.connect",
+    "visfd_tpu_torch.segment.connect", "visfd_tpu_torch.segment.watershed",
+    "visfd_tpu_torch.segment.propagate",
+    "visfd_tpu_torch.parallel.sharded_features",
+    "visfd_tpu_torch.parallel.blocks",
+    "visfd_tpu_torch.ops.threshold", "visfd_tpu_torch.ops.draw",
+    # the card's script and tests, run where jax is absent
+    "chip_smoke", "tests.test_torch_cuda_kernels",
 ]
 
 
 def test_port_never_imports_jax():
     """In a fresh interpreter (this one already imported jax through
-    tests/conftest.py), importing every module of the slice leaves jax
-    and the JAX package out of sys.modules."""
+    tests/conftest.py), importing every module of the port, chip_smoke.py
+    and the card's test file leaves jax and the JAX package out of
+    sys.modules."""
     code = ("import importlib, sys\n"
             f"for m in {SLICE_MODULES!r}:\n"
             "    importlib.import_module(m)\n"

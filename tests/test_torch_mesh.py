@@ -73,14 +73,6 @@ def jmesh():
     return JM.make_mesh(8)
 
 
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (chip_smoke.py phase 5 runs this on "
-                    "one)")
-    return torch.device("cuda")
-
-
 def _jshard(a, jmesh, lead=0):
     spec = (None,) * lead + tuple(jmesh.axis_names)
     return jax.device_put(jnp.asarray(a), NamedSharding(jmesh, P(*spec)))
@@ -554,25 +546,3 @@ def test_cli_refuses_a_cluster(phantom, monkeypatch, var):
         TFM.run(argv, device="cpu", mesh_devices=["cpu"] * 8)
     # without -mesh the variable is not read
     assert TFM.run(argv[:-2], device="cpu", report=Report(None)) == 0
-
-
-# --- on the card -----------------------------------------------------------
-
-def test_sharded_kernels_equal_single_on_card(cuda):
-    """On one card with a (2, 2) mesh: the per-shard kernels give the
-    single-device kernels' floats exactly."""
-    mesh = make_mesh(4, devices=[cuda] * 4)
-    sal, v, mask = _tv_fields(13, (32, 40, 48))
-    s_t, v_t, m_t = (torch.as_tensor(a, device=cuda) for a in (sal, v, mask))
-    want, want_den = tv_votes(s_t, v_t, 1.5, mask_src=m_t,
-                              want_denominator=True, truncate_ratio=RATIO,
-                              channel_major=True, nvec_channel_major=True)
-    got, got_den = TSH.tv_accumulate_sharded(
-        shard(sal, mesh), shard(v, mesh, lead=1), shard(mask, mesh), 1.5, 4,
-        False, RATIO, True, sparse=True)
-    assert np.array_equal(to_host_np(got), want.cpu().numpy())
-    assert np.array_equal(to_host_np(got_den), want_den.cpu().numpy())
-    ws, wv = EC.hessian_principal(s_t, 1.5)
-    gs, gv = TSH.hessian_principal_sharded(shard(sal, mesh), 1.5)
-    assert np.array_equal(to_host_np(gs), ws.cpu().numpy())
-    assert np.array_equal(to_host_np(gv), wv.cpu().numpy())

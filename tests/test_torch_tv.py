@@ -2,10 +2,11 @@
 against the JAX package: its Pallas voting kernel in interpret mode and
 its XLA tv_dense_stick.
 
-On the CPU the port takes the kernel's plain twin; the CUDA kernel is
-held against that twin on a card, dense and sparse.  Tolerance: rtol
-2e-4, atol 2e-5 (tests/test_tv_pallas.py: up to 343 float32 vote terms
-summed in another order); sparse against dense on the card: rtol 3e-7.
+On the CPU the port takes the kernel's plain twin (the CUDA kernel is
+held against that twin on a card, dense and sparse, in
+tests/test_torch_cuda_kernels.py).  Tolerance: rtol 2e-4, atol 2e-5
+(tests/test_tv_pallas.py: up to 343 float32 vote terms summed in
+another order).
 """
 
 import numpy as np
@@ -32,13 +33,6 @@ def _few_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(prev)
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (chip_smoke.py runs this on one)")
-    return torch.device("cuda")
 
 
 def _sigma(hw):
@@ -214,31 +208,3 @@ def test_smem_plan_fits_up_to_the_cap(want_den):
                           + ry * 16) <= 232448
     assert TC.smem_plan(TC.MAX_KERNEL_HALFWIDTH + 1, True) is None
     assert TC.smem_plan(3, want_den)[0] == 8
-
-
-@pytest.mark.parametrize("field", ["uniform", "top5"])
-@pytest.mark.parametrize("case", list(CASES))
-def test_tv_cuda_kernel_matches_twin(cuda, case, field):
-    hw, e, curves, masked, _, cm = CASES[case]
-    sal, v, mask = _fields(21, occupancy=0.05)
-    if field == "top5":
-        sal = _top5(22)
-    nv = np.moveaxis(v, -1, 0) if cm else v
-    kw = dict(exponent=e, detect_curves=curves, truncate_ratio=RATIO,
-              want_denominator=masked, channel_major=True,
-              nvec_channel_major=cm)
-    want, want_den = tv_votes(to_torch(sal), to_torch(nv), _sigma(hw),
-                              mask_src=to_torch(mask) if masked else None,
-                              **kw)
-    outs = []
-    for sparse in (False, True):
-        got, got_den = tv_votes(
-            to_torch(sal, cuda), to_torch(nv, cuda), _sigma(hw),
-            mask_src=to_torch(mask, cuda) if masked else None,
-            sparse=sparse, **kw)
-        torch.cuda.synchronize()
-        _close(to_numpy(got), to_numpy(want))
-        if masked:
-            _close(to_numpy(got_den), to_numpy(want_den))
-        outs.append(to_numpy(got))
-    np.testing.assert_allclose(outs[1], outs[0], rtol=3e-7, atol=0)

@@ -1,37 +1,52 @@
 """filter_mrc for the PyTorch port: the flagship membrane run,
-``-membrane|-curve|-edge … -tv … -connect …``, and the stand-alone
-``-connect``.
+``-membrane|-curve|-edge … -tv … -connect …``, the stand-alone
+``-connect``, the segmentation handlers ``-find-minima|-find-maxima``
+and ``-watershed`` (host flood, or ``-watershed-device``), and the
+intensity map that follows any handler.
 
-Port of the slice of ``visfd_tpu/cli/filter_mrc.py`` that the flagship
-run takes: read -> mask -> voxel width -> (auto-)binning -> unit rescale
--> ``handle_tv`` (or ``handle_label_connected``) -> invert / masked
-brightness / rescale -> unbin -> write.  ``handle_tv`` runs the four
-kernels: Gaussian blur (``ops/blur_cuda``), Hessian + principal
-eigensolve + score (``ops/eigen_cuda.hessian_principal``), stick voting
-(``ops/tv_cuda``, sparse under ``-tv-best`` <= 0.5) and the vote
-tensor's eigen score, with its principal eigenvector under ``-connect``
-(``ops/eigen_cuda.sym3_score``).  ``-edge`` takes the JAX CLI's
-non-fused branch (gradient, ``features/tv.tv_dense_stick``, the vote
-scored by ``linalg/sym3``), and so does ``-load-progress``'s vote.
-``-connect`` runs ``segment/connect.label_connected``: gates, seeds and
-candidate compaction on the card, the native flood on the host;
-``-normals-file`` walks the chosen cluster on the host and writes a PLY.
+Port of ``visfd_tpu/cli/filter_mrc.py``: read (or ``-image-size``) ->
+mask -> voxel width -> (auto-)binning -> ``-mask-rect|-mask-sphere``
+regions -> unit rescale -> one handler -> invert -> ``-thresh*``,
+``-clip``, ``-thresh-gauss``, ``-rescale``, ``-fill`` -> masked
+brightness -> rescale -> unbin -> write.  With no filter flag the input
+goes to the intensity map as it is.
+
+* ``handle_tv`` runs the four kernels: Gaussian blur
+  (``ops/blur_cuda``), Hessian + principal eigensolve + score
+  (``ops/eigen_cuda.hessian_principal``), stick voting (``ops/tv_cuda``,
+  sparse under ``-tv-best`` <= 0.5) and the vote tensor's eigen score,
+  with its principal eigenvector under ``-connect``
+  (``ops/eigen_cuda.sym3_score``).  ``-edge`` takes the JAX CLI's
+  non-fused branch (gradient, voting, the vote scored by
+  ``linalg/sym3``), and so does ``-load-progress``'s vote.
+  ``-connect`` runs ``segment/connect.label_connected``: gates, seeds
+  and candidate compaction on the card, the native flood on the host;
+  ``-normals-file`` walks the chosen cluster on the host and writes a
+  PLY.
+* ``handle_extrema`` finds the plateau extrema on the card
+  (``segment/extrema``); ``handle_watershed`` floods on the host
+  (``segment/watershed``, seeds from the card) or, with
+  ``-watershed-device``, propagates labels on the card
+  (``segment/propagate``).
 
 With ``-mesh N|auto|all`` the volume is split into (z, y) blocks over a
-grid of devices (``parallel/mesh``, by default the visible cards) and
+grid of devices (``parallel/mesh``, by default the visible cards):
 ``handle_tv`` runs the sharded stages (``parallel/sharded``: halo
-exchange, then the per-shard kernels on every block) and the
-``-tv-best`` threshold as an exact radix selection over the blocks
-(``parallel/reduce``); the output equals the single-device run's.  One
-process drives every block: a multi-process cluster (``VISFD_COORDINATOR``
-or ``VISFD_NUM_PROCESSES`` set) is refused, and so is ``-mesh`` with
-``-connect``, ``-edge`` or ``-normals-file``.
+exchange, then the per-shard kernels on every block), the ``-tv-best``
+threshold as an exact radix selection over the blocks
+(``parallel/reduce``), and ``-connect`` its gates, seeds and compaction
+per block; ``-watershed-device`` runs the blockwise loops over the mesh
+(``parallel/sharded_features``).  Every output equals the single-device
+run's.  One process drives every block: a multi-process cluster
+(``VISFD_COORDINATOR`` or ``VISFD_NUM_PROCESSES`` set) is refused.
 
-Every flag outside this slice raises ``InputError`` naming it.
+Every flag outside these handlers raises ``InputError`` naming it.
 
 Usage: python -m visfd_tpu_torch.cli.filter_mrc -in in.rec -out out.rec
        -w 1 -membrane minima 3 -tv 1.5 [-connect 0.5 -connect-angle 30]
        [-mesh 4]
+       python -m visfd_tpu_torch.cli.filter_mrc -in in.rec -out ws.rec
+       -watershed minima [-watershed-device] [-thresh2 0 10]
 """
 
 from __future__ import annotations
@@ -47,21 +62,28 @@ import torch
 from visfd_tpu_torch.cli import settings as S
 from visfd_tpu_torch.cli.settings import InputError, Settings
 from visfd_tpu_torch.features import hessian as FH
-from visfd_tpu_torch.features import tv as TV
 from visfd_tpu_torch.io import mrc
+from visfd_tpu_torch.io.coords import fmt_g
 from visfd_tpu_torch.io.pointcloud import write_oriented_pointcloud_ply
 from visfd_tpu_torch.linalg import sym3
+from visfd_tpu_torch.ops import draw as D
 from visfd_tpu_torch.ops import filters as F
 from visfd_tpu_torch.ops import resample as R
+from visfd_tpu_torch.ops import threshold as T
 from visfd_tpu_torch.ops.eigen_cuda import hessian_principal, sym3_score
 from visfd_tpu_torch.ops.tv_cuda import tv_votes
 from visfd_tpu_torch.parallel.gather import to_host_np
-from visfd_tpu_torch.parallel.mesh import Mesh, bmap, divides, make_mesh, shard
+from visfd_tpu_torch.parallel.mesh import (
+    Mesh, ShardedVolume, as_blocks, bmap, divides, make_mesh, shard,
+    unwrap)
 from visfd_tpu_torch.parallel.reduce import fraction_threshold
 from visfd_tpu_torch.parallel.sharded import (
-    grid_mesh_of, hessian_principal_sharded, sym3_score_sharded,
-    tv_accumulate_sharded)
+    gradient_sharded, grid_mesh_of, hessian_principal_sharded,
+    sym3_score_sharded, tv_accumulate_sharded)
 from visfd_tpu_torch.segment.connect import label_connected
+from visfd_tpu_torch.segment.extrema import find_extrema, flat_to_xyz
+from visfd_tpu_torch.segment.propagate import propagate_watershed
+from visfd_tpu_torch.segment.watershed import watershed
 from visfd_tpu_torch.utils.progress import Report, stage
 
 # The flags this slice handles -> how many arguments follow each
@@ -94,6 +116,25 @@ _HANDLED_FLAGS = {
     "-save-progress": 1, "-load-progress": 1,
     **{f"-max-{unit}-to-{what}": 1 for unit in ("distance", "voxels")
        for what in ("feature", "surface", "membrane", "edge", "curve")},
+    # -find-minima / -find-maxima
+    "-find-minima": 1, "-find-maxima": 1, "-neighbor-connectivity": 1,
+    "-minima-threshold": 1, "-min-threshold": 1, "-score-upper-bound": 1,
+    "-maxima-threshold": 1, "-max-threshold": 1, "-score-lower-bound": 1,
+    "-boundary-extrema": 0, "-ignore-boundary-extrema": 0,
+    # -watershed
+    "-watershed": 1, "-watershed-device": 0, "-watershed-threshold": 1,
+    "-watershed-show-boundaries": 0, "-watershed-hide-boundaries": 0,
+    "-watershed-boundary": 1, "-markers": 1,
+    # the intensity map and the inputs
+    "-thresh": 1, "-thresh-out": 1, "-thresh2": 2, "-thresh2-out": 2,
+    "-clip": 2, "-cl": 2, "-thresh4": 4, "-thresh4-out": 4,
+    "-thresh-interval": 2, "-thresh-interval-out": 2,
+    "-thresh-gauss": 2, "-thresh-gauss-out": 2,
+    "-thresh-range": 2, "-thresh-range-out": 2, "-rescale": 2, "-fill": 1,
+    "-mask-rect": 6, "-mask-rectangle": 6, "-mask-rect-subtract": 6,
+    "-mask-rectangle-subtract": 6, "-mask-sphere": 4,
+    "-mask-sphere-subtract": 4, "-mask-rect-units-voxels": 0,
+    "-image-size": 3,
 }
 
 # flags refused with a reason of their own
@@ -122,7 +163,9 @@ def _check_flags(argv) -> None:
             raise InputError(
                 f"Error: {a} is not handled by visfd_tpu_torch yet (it "
                 f"runs -membrane/-curve/-edge with -tv and -connect, "
-                f"-mask and binning; see ROADMAP.md)")
+                f"-find-minima/-find-maxima, -watershed, the -thresh* "
+                f"intensity map, -mask, -mask-rect/-mask-sphere and "
+                f"binning; see ROADMAP.md)")
         n = _HANDLED_FLAGS[a]
         if n is None:
             try:
@@ -222,11 +265,7 @@ def handle_tv(s: Settings, img: mrc.MrcImage, x_np, mask_np, w, device,
              else sym3.EigenOrder.INCREASING)
     sigma = s.width_a[0]
     tr = _truncate_ratio(s)
-    if mesh is not None and not divides(x_np.shape, mesh):
-        print(f"-mesh: volume {tuple(x_np.shape)} not divisible by the "
-              f"{mesh.shape} device grid; sharding axes (None, None)",
-              file=sys.stderr)
-        mesh = None
+    mesh = _mesh_for(x_np, mesh)
     with stage("copy the volume to the device", rep):
         x = _maybe_shard(x_np, mesh, device)
         mask = _maybe_shard(mask_np, mesh, device)
@@ -248,11 +287,19 @@ def handle_tv(s: Settings, img: mrc.MrcImage, x_np, mask_np, w, device,
     with stage("gaussian blur + hessian + eigendecomposition", rep):
         if edge:
             # the JAX CLI's non-fused branch: the score is |gradient| and
-            # the voting direction the gradient itself, channel-last
-            direction, _ = FH.calc_hessian(x, sigma, mask=mask,
-                                           truncate_ratio=tr)
-            score = torch.sqrt((direction * direction).sum(-1))
-            rep.record_path("hessian_eigen", "gradient")
+            # the voting direction the gradient itself, channel-major,
+            # block by block (one device being a 1 x 1 grid)
+            hw = max(1, int(np.floor(sigma * tr)))
+            blur = F.apply_gauss(x, sigma, mask=mask,
+                                 truncate_halfwidth=(hw,) * 3)
+            direction = bmap(lambda g: g * sigma, unwrap(
+                gradient_sharded(as_blocks(blur)), blur))
+            if keep is not None:
+                direction = bmap(lambda d, k: d * k[None], direction, keep)
+            score = bmap(lambda d: torch.sqrt(
+                (d.movedim(0, -1) * d.movedim(0, -1)).sum(-1)), direction)
+            rep.record_path("hessian_eigen", "gradient" + (
+                "-sharded" if sharded else ""))
         else:
             hwb = max(1, int(np.floor(sigma * tr)))
             blur = F.apply_gauss(x, sigma, mask=mask,
@@ -291,13 +338,7 @@ def handle_tv(s: Settings, img: mrc.MrcImage, x_np, mask_np, w, device,
                 vote = bmap(lambda v, k: v * k[None], vote, keep)
         else:
             with stage("dense stick tensor voting", rep):
-                if edge:
-                    vote = TV.tv_dense_stick(
-                        score, direction, s.tv_sigma,
-                        exponent=s.tv_exponent, mask_src=mask,
-                        mask_dest=mask, truncate_ratio=s.tv_truncate_ratio,
-                        normalize=False, sparse=tv_sparse).movedim(-1, 0)
-                elif sharded:
+                if sharded:
                     vote, _ = tv_accumulate_sharded(
                         score, direction, mask, s.tv_sigma, s.tv_exponent,
                         curve, s.tv_truncate_ratio, False, sparse=tv_sparse)
@@ -309,7 +350,7 @@ def handle_tv(s: Settings, img: mrc.MrcImage, x_np, mask_np, w, device,
                         truncate_ratio=s.tv_truncate_ratio,
                         sparse=tv_sparse, channel_major=True,
                         nvec_channel_major=True)
-                if keep is not None and not edge:
+                if keep is not None:
                     vote = bmap(lambda v, k: torch.where(k[None], v, 0.0),
                                 vote, keep)
                 rep.record_path("tv", route + ("-sparse" if tv_sparse
@@ -350,8 +391,9 @@ def handle_tv(s: Settings, img: mrc.MrcImage, x_np, mask_np, w, device,
     labels_img = None
     if s.cluster_connected_voxels and vote is not None:
         if vec is None:
-            vec = sym3.principal_sym3(sym3.flat_to_full(vote.movedim(0, -1)),
-                                      order=order)[1].movedim(-1, 0)
+            vec = bmap(lambda v: sym3.principal_sym3(
+                sym3.flat_to_full(v.movedim(0, -1)), order=order)[1]
+                .movedim(-1, 0), vote)
         res = label_connected(
             score, mask=mask,
             threshold_saliency=s.connect_threshold_saliency,
@@ -379,8 +421,7 @@ def handle_tv(s: Settings, img: mrc.MrcImage, x_np, mask_np, w, device,
 
     if s.out_normals_fname:
         if direction_np is None:
-            direction_np = to_host_np(direction if edge
-                                      else direction.movedim(0, -1))
+            direction_np = np.moveaxis(to_host_np(direction), 0, -1)
         with stage("-normals-file", rep):
             write_normals(s, to_host_np(score), direction_np, labels_img,
                           mask_np, w)
@@ -588,15 +629,27 @@ def _local_gradient(a, ix, iy, iz):
         0.5 * (a[iz + 1, iy, ix] - a[iz - 1, iy, ix])], np.float32)
 
 
+def _mesh_for(x_np, mesh: Optional[Mesh]) -> Optional[Mesh]:
+    """``mesh`` if it divides the volume; else None (the volume then
+    runs on one device, as the JAX CLI leaves it to XLA)."""
+    if mesh is not None and not divides(x_np.shape, mesh):
+        print(f"-mesh: volume {tuple(x_np.shape)} not divisible by the "
+              f"{mesh.shape} device grid; sharding axes (None, None)",
+              file=sys.stderr)
+        return None
+    return mesh
+
+
 def handle_label_connected(s: Settings, x_np, mask_np, device,
-                           rep: Report) -> np.ndarray:
+                           rep: Report, mesh: Optional[Mesh] = None
+                           ) -> np.ndarray:
     """``HandleLabelConnected`` (``handlers.cpp:1398-1495``): the
-    stand-alone ``-connect`` on the input image itself."""
+    stand-alone ``-connect`` on the input image itself, over the mesh's
+    blocks with ``-mesh``."""
+    mesh = _mesh_for(x_np, mesh)
     with stage("copy the volume to the device", rep):
-        x = torch.tensor(x_np, dtype=torch.float32, device=device)
-        mask = (None if mask_np is None
-                else torch.tensor(mask_np, dtype=torch.float32,
-                                  device=device))
+        x = _maybe_shard(x_np, mesh, device)
+        mask = _maybe_shard(mask_np, mesh, device)
     res = label_connected(
         x, mask=mask, threshold_saliency=s.connect_threshold_saliency,
         connectivity=1, label_undefined=-1,
@@ -604,6 +657,163 @@ def handle_label_connected(s: Settings, x_np, mask_np, device,
         must_link_directions=s.must_link_directions or None,
         start_from_saliency_maxima=s.clusters_begin_at_maxima, report=rep)
     return _cluster_image(res, s)
+
+
+def handle_extrema(s: Settings, x_np, mask_np, w, device,
+                   rep: Report) -> np.ndarray:
+    """``HandleExtrema`` (``handlers.cpp:1086-1245``): the plateau
+    extrema found on ``device``; only their lists and the label image
+    come back.  A list's file is written only when it is not empty."""
+    with stage("copy the volume to the device", rep):
+        x = torch.tensor(x_np, dtype=torch.float32, device=device)
+        mask = (None if mask_np is None else
+                torch.tensor(mask_np, dtype=torch.float32, device=device))
+    with stage("find extrema", rep):
+        res = find_extrema(
+            x, mask=mask, find_minima=s.find_minima,
+            find_maxima=s.find_maxima,
+            minima_threshold=s.score_upper_bound,
+            maxima_threshold=s.score_lower_bound,
+            connectivity=s.neighbor_connectivity,
+            allow_borders=s.extrema_on_boundary, want_label_image=True)
+    print(f"Found {res.num_extrema} extrema", file=sys.stderr)
+
+    def write(fname, idxs, nvox, scores):
+        ix, iy, iz = flat_to_xyz(np.asarray(idxs, np.int64), x_np.shape)
+        with open(fname, "w") as fh:
+            for i in range(len(idxs)):
+                fh.write(f"{fmt_g(ix[i] * w[0])} {fmt_g(iy[i] * w[1])} "
+                         f"{fmt_g(iz[i] * w[2])} {nvox[i]} "
+                         f"{fmt_g(scores[i])}\n")
+
+    if s.find_minima and len(res.minima_indices):
+        write(s.find_minima_file_name, res.minima_indices,
+              res.minima_nvoxels, res.minima_scores)
+    if s.find_maxima and len(res.maxima_indices):
+        write(s.find_maxima_file_name, res.maxima_indices,
+              res.maxima_nvoxels, res.maxima_scores)
+    out = res.label_image.astype(np.float32)
+    if mask_np is not None:
+        out = np.where(mask_np != 0, out, 0.0).astype(np.float32)
+    return out
+
+
+def handle_watershed(s: Settings, x_np, mask_np, device, rep: Report,
+                     mesh: Optional[Mesh] = None) -> np.ndarray:
+    """``HandleWatershed`` (``handlers.cpp:1279-1391``): the host Meyer
+    flood (seeds found on the card), or with ``-watershed-device`` the
+    label propagation on the card (over the mesh's blocks with
+    ``-mesh``).  The output image is built on the card and copied to the
+    host once, as float32."""
+    markers = None
+    if s.watershed_markers_filename:
+        markers = np.round(mrc.read_mrc(
+            s.watershed_markers_filename).data).astype(np.int64)
+    kw = dict(mask=mask_np, markers=markers,
+              start_from_minima=not s.clusters_begin_at_maxima,
+              halt_threshold=s.watershed_threshold,
+              connectivity=s.neighbor_connectivity,
+              show_boundaries=s.watershed_show_boundaries,
+              label_boundary=int(s.watershed_boundary_label),
+              label_undefined=-1)
+    if s.watershed_on_device:
+        mesh = _mesh_for(x_np, mesh)
+        with stage("copy the volume to the device", rep):
+            x = _maybe_shard(x_np, mesh, device)
+            kw["mask"] = _maybe_shard(mask_np, mesh, device)
+        with stage("watershed-device", rep):
+            res = propagate_watershed(x, report=rep, **kw)
+        rep.record_path("watershed", "device" + ("-sharded" if mesh
+                                                 else ""))
+    else:
+        if x_np.size >= 256 ** 3:
+            print("note: the host Meyer flood is serial at this volume; "
+                  "-watershed-device propagates the labels on the card "
+                  "(label-level parity wherever intensities are distinct)",
+                  file=sys.stderr)
+        with stage("copy the volume to the device", rep):
+            x = torch.tensor(x_np, dtype=torch.float32, device=device)
+            if mask_np is not None:
+                kw["mask"] = torch.tensor(mask_np, device=device)
+        res = watershed(x, report=rep, **kw)
+        rep.record_path("watershed", "native")
+    print(f"Number of basins found: {res.num_basins}", file=sys.stderr)
+    rep.record_count("watershed basins", res.num_basins)
+    labels = res.labels
+    if isinstance(labels, np.ndarray):
+        labels = torch.as_tensor(labels, device=device)
+    undef_value = s.undefined_voxel_brightness
+    if s.undefined_voxels_are_max:
+        vols = labels.blocks if isinstance(labels, ShardedVolume) else \
+            [[labels]]
+        undef_value = max(int(b.max()) if b.numel() else 0
+                          for row in vols for b in row) + 1
+    mask = kw["mask"]
+    if mask is not None and not isinstance(mask, ShardedVolume):
+        mask = torch.as_tensor(mask, device=device)
+
+    def image(lab, m=None):
+        out = torch.where(lab == -1, undef_value, lab.to(torch.float32))
+        if m is not None:
+            out = torch.where(m == 0, s.undefined_voxel_brightness, out)
+        return out.to(torch.float32)
+    with stage("copy the result to the host", rep):
+        return to_host_np(bmap(image, labels) if mask is None
+                          else bmap(image, labels, mask))
+
+
+def handle_thresholds(s: Settings, out_np, mask_np, device) -> np.ndarray:
+    """``HandleThresholds`` (``handlers.cpp:1003-1081``), on ``device``:
+    the intensity map of the handler's output (the JAX CLI maps the
+    image the handler left, as the reference reads ``tomo_in``); the
+    ``-cl`` mean and deviation in float64 on the host, as there."""
+    a, b = s.in_threshold_01_a, s.in_threshold_01_b
+    if s.out_thresh2_use_clipping_sigma:
+        vals = out_np if mask_np is None else out_np[mask_np != 0]
+        ave = float(vals.mean(dtype=np.float64))
+        std = float(vals.std(dtype=np.float64))
+        a = ave + s.in_threshold_01_a * std
+        b = ave + s.in_threshold_01_b * std
+        print(f"ave={fmt_g(ave)}, stddev={fmt_g(std)}", file=sys.stderr)
+        print(f"  Clipping intensities between [{fmt_g(a)}, {fmt_g(b)}]",
+              file=sys.stderr)
+    x = torch.as_tensor(np.asarray(out_np, np.float32), device=device)
+    if s.use_rescale_multiply:
+        out = x * s.out_rescale_multiply + s.out_rescale_offset
+    elif s.use_gauss_thresholds:
+        out = T.select_intensity_range_gauss(
+            x, s.out_thresh_gauss_x0, s.out_thresh_gauss_sigma,
+            s.out_thresh_a_value, s.out_thresh_b_value)
+    elif not s.use_dual_thresholds:
+        if a == b:
+            out = torch.where(x > a, s.out_thresh_b_value,
+                              s.out_thresh_a_value)
+        else:
+            oa = a if s.out_thresh2_use_clipping else s.out_thresh_a_value
+            ob = b if s.out_thresh2_use_clipping else s.out_thresh_b_value
+            out = T.threshold2(x, a, b, oa, ob)
+    else:
+        out = T.threshold4(x, s.in_threshold_01_a, s.in_threshold_01_b,
+                           s.in_threshold_10_a, s.in_threshold_10_b,
+                           s.out_thresh_a_value, s.out_thresh_b_value)
+    return out.to(torch.float32).cpu().numpy()
+
+
+def _mask_regions(s: Settings, mask_np, shape, w):
+    """The mask with ``-mask-rect``/``-mask-sphere`` regions painted in
+    (``filter_mrc.cpp:222-287``; a mask of zeros when none was read)."""
+    if mask_np is None:
+        mask_np = np.zeros(shape, np.float32)
+    else:
+        mask_np = np.array(mask_np, np.float32)
+    scale = (1.0 / s.resize_with_binning if s.is_mask_crds_in_voxels
+             else 1.0 / w[0])
+    regions = []
+    for reg in s.mask_regions:
+        p = tuple(v * scale for v in reg.params)
+        regions.append(D.Rect(*p, value=reg.value) if reg.kind == "rect"
+                       else D.Sphere(*p, value=reg.value))
+    return D.draw_regions(mask_np, regions, negative_means_subtract=True)
 
 
 def run(argv, device="cuda", report: Optional[Report] = None,
@@ -626,24 +836,27 @@ def run(argv, device="cuda", report: Optional[Report] = None,
             f"multi-process run, which visfd_tpu_torch does not run yet: "
             f"one process drives every block (see ROADMAP.md)")
     tv_types = (S.SURFACE_RIDGE, S.SURFACE_EDGE, S.CURVE)
-    if s.filter_type not in tv_types + (S.LABEL_CONNECTED,):
+    if s.filter_type not in tv_types + (S.LABEL_CONNECTED, S.NONE,
+                                        S.FIND_EXTREMA, S.WATERSHED):
         raise InputError("Error: visfd_tpu_torch runs -membrane, -curve or "
-                         "-edge (with -tv) and -connect only so far")
-    if s.mesh_devices and (s.cluster_connected_voxels
-                           or s.filter_type == S.SURFACE_EDGE
-                           or s.out_normals_fname):
-        raise InputError("Error: visfd_tpu_torch does not run -connect, "
-                         "-edge or -normals-file with -mesh yet (see "
-                         "ROADMAP.md)")
+                         "-edge (with -tv), -connect, -find-minima/-maxima "
+                         "and -watershed only so far")
     mesh = _cli_mesh(s, mesh_devices)
-    if not s.in_file_name:
-        raise InputError("Error: -in is required")
     rep = report if report is not None else Report(sys.stderr)
 
-    print(f'Reading tomogram "{s.in_file_name}"', file=sys.stderr)
-    with stage("read the tomogram", rep):
-        img = mrc.read_mrc(s.in_file_name)
-    img.header.print_stats(sys.stderr)
+    if s.in_file_name:
+        print(f'Reading tomogram "{s.in_file_name}"', file=sys.stderr)
+        with stage("read the tomogram", rep):
+            img = mrc.read_mrc(s.in_file_name)
+        img.header.print_stats(sys.stderr)
+    elif all(v > 0 for v in s.in_set_image_size):
+        nx, ny, nz = s.in_set_image_size
+        img = mrc.MrcImage(
+            header=mrc.MrcHeader(nvoxels=(nx, ny, nz),
+                                 cellA=(float(nx), float(ny), float(nz))),
+            data=np.zeros((nz, ny, nx), np.float32))
+    else:
+        raise InputError("Error: -in (or -image-size) is required")
 
     mask_np = None
     if s.mask_file_name:
@@ -673,6 +886,9 @@ def run(argv, device="cuda", report: Optional[Report] = None,
                   f"{s.resize_with_binning}", file=sys.stderr)
             img, mask_np = handle_binning(s, img, mask_np, w, device)
 
+    if s.mask_regions:
+        mask_np = _mask_regions(s, mask_np, img.data.shape, w)
+
     # unit rescaling (filter_mrc.cpp:290-380), the fields this path reads
     if s.max_distance_to_feature < 0:
         s.max_distance_to_feature /= -w[0]
@@ -691,8 +907,16 @@ def run(argv, device="cuda", report: Optional[Report] = None,
         img.rescale01(mask_np, s.in_rescale_min, s.in_rescale_max)
 
     x_np = img.data
-    if s.filter_type == S.LABEL_CONNECTED:
-        out = handle_label_connected(s, x_np, mask_np, device, rep)
+    if s.filter_type == S.NONE:
+        print("filter_type = Intensity Map <No convolution filter "
+              "specified>", file=sys.stderr)
+        out = np.array(x_np, np.float32)
+    elif s.filter_type == S.FIND_EXTREMA:
+        out = handle_extrema(s, x_np, mask_np, w, device, rep)
+    elif s.filter_type == S.WATERSHED:
+        out = handle_watershed(s, x_np, mask_np, device, rep, mesh)
+    elif s.filter_type == S.LABEL_CONNECTED:
+        out = handle_label_connected(s, x_np, mask_np, device, rep, mesh)
     else:
         if min(x_np.shape) < 3:
             raise InputError(f"Error: visfd_tpu_torch needs at least 3 "
@@ -707,6 +931,9 @@ def run(argv, device="cuda", report: Optional[Report] = None,
         oimg = mrc.MrcImage(header=img.header, data=out)
         oimg.invert(mask_np)
         out = oimg.data
+
+    if s.use_intensity_map:
+        out = handle_thresholds(s, out, mask_np, device)
 
     if mask_np is not None and s.specify_masked_brightness:
         out = np.where(mask_np == 0, s.masked_voxel_brightness, out)

@@ -64,6 +64,42 @@ def hessian_fd_padded(padded: torch.Tensor) -> torch.Tensor:
     return torch.stack([hxx, hyy, hzz, hxy, hyz, hxz], dim=-1)
 
 
+def gradient_fd_padded(padded: torch.Tensor) -> torch.Tensor:
+    """The central-difference gradient, (Z, Y, X, 3) in (x, y, z) order,
+    of the interior of a volume padded by one voxel on every face; no
+    edge clamp (``gradient_fd``'s floats inside the volume)."""
+    nz, ny, nx = (d - 2 for d in padded.shape)
+
+    def sh(dz, dy, dx):  # out[p] = padded[p + 1 + (dz, dy, dx)]
+        return padded[1 + dz:1 + dz + nz, 1 + dy:1 + dy + ny,
+                      1 + dx:1 + dx + nx]
+    return torch.stack([0.5 * (sh(0, 0, 1) - sh(0, 0, -1)),
+                        0.5 * (sh(0, 1, 0) - sh(0, -1, 0)),
+                        0.5 * (sh(1, 0, 0) - sh(-1, 0, 0))], dim=-1)
+
+
+def fd_slab(src: torch.Tensor, z0: int, z1: int, y0: int, y1: int,
+            org=(0, 0), shape=None, padded_fn=hessian_fd_padded):
+    """``fd(S)[z0:z1, y0:y1]`` of a global volume S of (Z, Y, X)
+    ``shape``, where fd is ``hessian_fd`` (``padded_fn`` =
+    ``hessian_fd_padded``) or ``gradient_fd`` (``gradient_fd_padded``),
+    computed from ``src``: the planes and rows of S from ``org`` = (z, y)
+    on, all of X (S itself, or a mesh block with a halo of 2).  The same
+    floats: every voxel takes the stencil of the nearest voxel at least
+    one voxel inside the faces, read from ``src``.  Needs Z, Y, X >= 3."""
+    nz, ny, nx = shape if shape is not None else src.shape
+    oz, oy = org
+
+    def clamped(a, b, n):
+        return torch.arange(a, b, device=src.device).clamp(1, n - 2)
+    cz, cy = clamped(z0, z1, nz), clamped(y0, y1, ny)
+    cz0, cz1, cy0, cy1 = int(cz[0]), int(cz[-1]), int(cy[0]), int(cy[-1])
+    part = src[cz0 - 1 - oz:cz1 + 2 - oz, cy0 - 1 - oy:cy1 + 2 - oy]
+    h = padded_fn(torch.nn.functional.pad(part, (1, 1)))
+    return (h.index_select(0, cz - cz0).index_select(1, cy - cy0)
+            .index_select(2, clamped(0, nx, nx)))
+
+
 def hessian_fd(smoothed: torch.Tensor) -> torch.Tensor:
     """3x3 central-difference Hessian flattened to (Z, Y, X, 6)
     [xx, yy, zz, xy, yz, xz]."""

@@ -1,0 +1,118 @@
+"""Blockwise fixpoint loops over (z, y) blocks, for the segmentation.
+
+The device watershed (``segment.propagate``) and the plateau labels of
+``segment.extrema`` walk the blocks of a ``parallel.mesh.ShardedVolume``
+(a plain tensor is the one block of a 1 x 1 grid): each block reads its
+neighbours through a 1-voxel halo (``parallel.halo.halo1``), indexes
+voxels by their global flat index in the single-device raster order
+(``Geom``), and a loop runs until no block changes (``fixpoint``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from visfd_tpu_torch.parallel.mesh import ShardedVolume
+
+SENT = 2 ** 31 - 1          # int32 sentinel (the JAX package's SENT, BIG)
+INF = float("inf")
+SYNC_EVERY = 8              # iterations between reads of a loop's flag
+
+
+def check_index_width(shape) -> None:
+    n = int(np.prod(shape))
+    if n >= SENT:
+        raise ValueError(f"the blockwise segmentation loops index voxels "
+                         f"with int32; "
+                         f"{tuple(shape)} has {n} voxels, more than "
+                         f"{SENT - 1}")
+
+
+def nb(p, off):
+    """The neighbours at ``off`` of every voxel of a block padded by one
+    voxel on each face."""
+    dz, dy, dx = off
+    bz, by, nx = (s - 2 for s in p.shape)
+    return p[1 + dz:1 + dz + bz, 1 + dy:1 + dy + by, 1 + dx:1 + dx + nx]
+
+
+class Geom:
+    """Global flat indices and in-volume tests of each block's voxels."""
+
+    def __init__(self, vol: ShardedVolume):
+        self.shape = tuple(vol.shape[-3:])
+        self.bz, self.by = vol.block_shape
+        check_index_width(self.shape)
+
+    def coords(self, iz, iy, device):
+        nz, ny, nx = self.shape
+        z = torch.arange(self.bz, device=device) + iz * self.bz
+        y = torch.arange(self.by, device=device) + iy * self.by
+        return z, y, torch.arange(nx, device=device)
+
+    def idx(self, iz, iy, device):
+        _, ny, nx = self.shape
+        z, y, x = self.coords(iz, iy, device)
+        return ((z[:, None, None] * ny + y[None, :, None]) * nx
+                + x[None, None, :]).to(torch.int32)
+
+    def inb(self, iz, iy, off, device):
+        """Whether the neighbour at ``off`` lies in the volume."""
+        z, y, x = self.coords(iz, iy, device)
+        ok = [((c + d) >= 0) & ((c + d) < n)
+              for c, d, n in zip((z, y, x), off, self.shape)]
+        return (ok[0][:, None, None] & ok[1][None, :, None]
+                & ok[2][None, None, :])
+
+    def delta(self, off):
+        _, ny, nx = self.shape
+        dz, dy, dx = off
+        return (dz * ny + dy) * nx + dx
+
+    def jump(self, iz, iy, lab, *others):
+        """Block-local pointer jump: where ``lab`` (a global flat index)
+        points inside this block, the values there of ``lab`` and of
+        ``others``; elsewhere None (for ``others``) / ``lab`` itself."""
+        _, ny, nx = self.shape
+        bz, by = self.bz, self.by
+        z0, y0 = iz * bz, iy * by
+        dz = lab // (ny * nx)
+        rem = lab - dz * (ny * nx)
+        dy = rem // nx
+        dx = rem - dy * nx
+        inblk = (dz >= z0) & (dz < z0 + bz) & (dy >= y0) & (dy < y0 + by)
+        loc = (((dz - z0) * by + (dy - y0)) * nx + dx).clamp(
+            0, bz * by * nx - 1).reshape(-1)
+        return inblk, [t.reshape(-1)[loc].reshape(t.shape)
+                       for t in (lab,) + others]
+
+
+def fixpoint(step, state, max_it: Optional[int] = None):
+    """``state = step(state)`` until an iteration changes nothing (or
+    ``max_it`` iterations ran), the per-block "changed" flags read every
+    SYNC_EVERY iterations.  Returns (state, iterations the JAX loop
+    runs): the changing iterations plus the one that found the
+    fixpoint."""
+    it, n_changed = 0, 0
+    while max_it is None or it < max_it:
+        k = SYNC_EVERY if max_it is None else min(SYNC_EVERY, max_it - it)
+        flags = []
+        for _ in range(k):
+            state, changed = step(state)
+            flags.append(changed)
+        it += k
+        per_it = [any(bool(c) for c in ch) for ch in flags]
+        n_changed += sum(per_it)
+        if not per_it[-1]:
+            break
+    n = n_changed + 1
+    return state, n if max_it is None else min(n, max_it)
+
+
+def cells(*vols):
+    """(iz, iy, blocks...) over several volumes of one partition."""
+    for iz, iy, b in vols[0].cells():
+        yield (iz, iy, b) + tuple(v.blocks[iz][iy] for v in vols[1:])

@@ -72,6 +72,38 @@ def halo_pad_2d(vol: ShardedVolume, halo_z: int,
     return halo_pad(halo_pad(vol, halo_z, 0), halo_y, 1)
 
 
+def haloed_block(vol: ShardedVolume, iz: int, iy: int, halo: int,
+                 fill=0) -> torch.Tensor:
+    """Block (iz, iy) of a plain (Z, Y, X) volume with ``halo`` rows of
+    its neighbours on each side along z and y (from as many blocks away
+    as ``halo`` reaches) and ``fill`` beyond the volume: one new tensor
+    on the block's device, built block by block so a stage that walks
+    the blocks holds one haloed copy at a time."""
+    b = vol.blocks[iz][iy]
+    bz, by = vol.block_shape
+    nz_m, ny_m = vol.mesh.shape
+    out = b.new_full((bz + 2 * halo, by + 2 * halo, b.shape[-1]), fill)
+    z_lo, y_lo = iz * bz - halo, iy * by - halo
+    z_hi, y_hi = z_lo + bz + 2 * halo, y_lo + by + 2 * halo
+    for jz in range(max(0, z_lo // bz), min(nz_m, -(-z_hi // bz))):
+        gz0, gz1 = max(jz * bz, z_lo), min(jz * bz + bz, z_hi)
+        for jy in range(max(0, y_lo // by), min(ny_m, -(-y_hi // by))):
+            gy0, gy1 = max(jy * by, y_lo), min(jy * by + by, y_hi)
+            src = vol.blocks[jz][jy][gz0 - jz * bz:gz1 - jz * bz,
+                                     gy0 - jy * by:gy1 - jy * by]
+            out[gz0 - z_lo:gz1 - z_lo, gy0 - y_lo:gy1 - y_lo] = src.to(
+                out.device, non_blocking=True)
+    return out
+
+
+def halo1(vol: ShardedVolume, iz: int, iy: int, fill) -> torch.Tensor:
+    """Block (iz, iy) padded by one voxel on every face: its neighbours'
+    rows along z and y, ``fill`` beyond the volume (x included), for
+    the segmentation stencils, which read every neighbour of a voxel."""
+    return torch.nn.functional.pad(haloed_block(vol, iz, iy, 1, fill),
+                                   (1, 1), value=fill)
+
+
 def face_halos(vol: ShardedVolume, iz: int, iy: int):
     """The 1-deep halos of block (iz, iy) of a plain (Z, Y, X) volume as
     four slabs, zeros beyond the global volume: (z_lo, z_hi), the planes

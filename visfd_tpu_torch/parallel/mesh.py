@@ -153,6 +153,66 @@ def shard(x, mesh: Mesh, lead: int = 0) -> ShardedVolume:
     return from_blocks(blocks, mesh)
 
 
+def as_blocks(t) -> ShardedVolume:
+    """A ShardedVolume as it is, or a tensor as the one block of a 1 x 1
+    grid on its own device (no copy): the stages that walk blocks run a
+    whole volume this way."""
+    if isinstance(t, ShardedVolume):
+        return t
+    return from_blocks([[t]], Mesh(((t.device,),)))
+
+
+def unwrap(vol: ShardedVolume, like):
+    """``vol`` back in the form of ``like``: the tensor of a 1 x 1 grid
+    unless ``like`` is a ShardedVolume."""
+    return vol if isinstance(like, ShardedVolume) else vol.blocks[0][0]
+
+
+def place(arr: np.ndarray, like: ShardedVolume) -> ShardedVolume:
+    """A host (Z, Y, X) array split into the blocks of ``like``'s
+    partition, on their devices, keeping its dtype."""
+    bz, by = like.block_shape
+    return like.with_blocks(lambda iz, iy, b: torch.as_tensor(np.ascontiguousarray(
+        arr[iz * bz:(iz + 1) * bz, iy * by:(iy + 1) * by]), device=b.device))
+
+
+def _block_of(vol: ShardedVolume, flat: np.ndarray):
+    """(block row, block column, flat index inside the block) of global
+    raster indices of a (Z, Y, X) volume."""
+    _, ny, nx = vol.shape
+    bz, by = vol.block_shape
+    z, y, x = flat // (ny * nx), (flat // nx) % ny, flat % nx
+    return z // bz, y // by, ((z % bz) * by + y % by) * nx + x
+
+
+def gather_flat(vol: ShardedVolume, flat) -> np.ndarray:
+    """The values of a (Z, Y, X) volume at global raster indices, as a
+    host array: each block gathers its own on its device."""
+    flat = np.asarray(flat, np.int64)
+    bzi, byi, loc = _block_of(vol, flat)
+    out = None
+    for iz, iy, b in vol.cells():
+        sel = (bzi == iz) & (byi == iy)
+        vals = b.reshape(-1)[torch.as_tensor(loc[sel], device=b.device)]
+        if out is None:
+            out = np.empty(len(flat), vals.cpu().numpy().dtype)
+        out[sel] = vals.cpu().numpy()
+    return out
+
+
+def scatter_flat(vol: ShardedVolume, flat, values) -> None:
+    """Write ``values`` (one per index, or a scalar) at global raster
+    indices of a (Z, Y, X) volume, in place."""
+    flat = np.asarray(flat, np.int64)
+    values = np.broadcast_to(np.asarray(values), flat.shape)
+    bzi, byi, loc = _block_of(vol, flat)
+    for iz, iy, b in vol.cells():
+        sel = (bzi == iz) & (byi == iy)
+        if sel.any():
+            b.reshape(-1)[torch.as_tensor(loc[sel], device=b.device)] = \
+                torch.as_tensor(values[sel], dtype=b.dtype, device=b.device)
+
+
 def bmap(fn: Callable, *args):
     """``fn(*args)``, block by block when any argument is a
     ShardedVolume (all such arguments share one partition; other

@@ -19,7 +19,9 @@ card.
 * ``tv_accumulate_sharded``: hw-deep halos of saliency, direction and
   mask, the per-shard voting kernel (dense or sparse).
 * ``sym3_score_sharded``: the vote-tensor eigen kernel on each block
-  (voxelwise: no halo).
+  (voxelwise: no halo), with the principal vector under ``-connect``;
+* ``gradient_sharded``: the FD gradient of ``-edge``, each block read
+  with a 2-deep halo (``features.hessian.fd_slab``).
 
 ``make_membrane_step`` and the XLA-loop ``_sharded_tv`` of the JAX
 package are not ported: they need ``diagonalize_sym3``.
@@ -31,12 +33,13 @@ from typing import Optional, Sequence
 
 import torch
 
+from visfd_tpu_torch.features.hessian import fd_slab, gradient_fd_padded
 from visfd_tpu_torch.ops.blur_cuda import blur3
 from visfd_tpu_torch.ops.conv import _ones_denom_1d
 from visfd_tpu_torch.ops.eigen_cuda import (
     _n_score_channels, hessian_principal_block, sym3_score)
 from visfd_tpu_torch.ops.tv_cuda import tv_tables, tv_votes_prepadded
-from visfd_tpu_torch.parallel.halo import face_halos, halo_pad_2d
+from visfd_tpu_torch.parallel.halo import face_halos, halo_pad_2d, haloed_block
 from visfd_tpu_torch.parallel.mesh import (
     Mesh, ShardedVolume, bmap, from_blocks)
 
@@ -205,3 +208,18 @@ def sym3_score_sharded(
     results = [[sym3_score(b, decreasing, formula, want_v) for b in row]
                for row in t6.blocks]
     return _unzip(results, t6.mesh)
+
+
+def gradient_sharded(smoothed: ShardedVolume) -> ShardedVolume:
+    """``features.hessian.gradient_fd`` of a sharded volume (the same
+    floats), channel-major (3, Z, Y, X): each block's stencils read its
+    neighbours through a 2-deep halo, the volume's faces taking the
+    stencil of the nearest interior voxel."""
+    bz, by = smoothed.block_shape
+
+    def cell(iz, iy, b):
+        return fd_slab(haloed_block(smoothed, iz, iy, 2), iz * bz,
+                       (iz + 1) * bz, iy * by, (iy + 1) * by,
+                       (iz * bz - 2, iy * by - 2), smoothed.shape,
+                       gradient_fd_padded).movedim(-1, 0)
+    return smoothed.with_blocks(cell)

@@ -39,7 +39,11 @@ native flood runs on that candidate set.  Labels, clusters, polarity and
 the standardized vectors at every assigned voxel equal the dense
 flood's; never-assigned voxels keep their input vector sign (the dense
 flood may flip signs there while queueing voxels that then fail the
-threshold, values no consumer reads).
+threshold, values no consumer reads).  Under ``-mesh`` the inputs are
+ShardedVolumes: the gates read each block with a 2-deep halo of the
+saliency, the seeds come from ``find_extrema`` on the blocks, and the
+candidates are compacted per block and merged into the single-device
+raster order before the same flood.
 
 ``_flood_python`` is the plain twin of the native flood (the tests hold
 one against the other); nothing on the main path runs it.
@@ -56,8 +60,11 @@ import numpy as np
 import torch
 
 from visfd_tpu_torch import native
-from visfd_tpu_torch.features.hessian import hessian_fd, hessian_fd_padded
+from visfd_tpu_torch.features.hessian import fd_slab, hessian_fd
 from visfd_tpu_torch.linalg import sym3
+from visfd_tpu_torch.parallel.gather import to_host_np
+from visfd_tpu_torch.parallel.halo import haloed_block
+from visfd_tpu_torch.parallel.mesh import ShardedVolume
 from visfd_tpu_torch.segment.extrema import (
     find_extrema, flat_to_xyz, neighbor_offsets)
 from visfd_tpu_torch.utils.progress import Report, stage
@@ -93,23 +100,6 @@ def trace_product_sym3_quirk(a, b):
 
 def frobenius_norm_sym3_quirk(a):
     return np.sqrt(np.maximum(trace_product_sym3_quirk(a, a), 0.0))
-
-
-def _hessian_slab(sal: torch.Tensor, z0: int, z1: int) -> torch.Tensor:
-    """``hessian_fd(sal)[z0:z1]`` from the planes z0-1 .. z1 only: the
-    same floats, the faces taking the stencil of the nearest interior
-    voxel."""
-    nz, ny, nx = sal.shape
-    if nz < 3:
-        return hessian_fd(sal)[z0:z1]
-    c_lo, c_hi = min(max(z0, 1), nz - 2), min(max(z1 - 1, 1), nz - 2)
-    padded = torch.nn.functional.pad(sal[c_lo - 1:c_hi + 2], (1, 1, 1, 1))
-    h = hessian_fd_padded(padded)            # planes c_lo .. c_hi
-    for axis, n in ((1, ny), (2, nx)):
-        h = h.index_select(axis, torch.arange(n, device=h.device)
-                           .clamp(1, n - 2))
-    zi = torch.arange(z0, z1, device=h.device).clamp(1, nz - 2) - c_lo
-    return h.index_select(0, zi)
 
 
 def gate_sides(hess, tensor, vector, threshold_tensor, threshold_vector,
@@ -151,26 +141,59 @@ def gate_sides(hess, tensor, vector, threshold_tensor, threshold_vector,
 
 def discard_gates(sal, tensor, vector, threshold_tensor, threshold_vector,
                   order, consider_sign, neg_hess,
-                  slab_voxels: int = GATE_SLAB_VOXELS) -> torch.Tensor:
+                  slab_voxels: int = GATE_SLAB_VOXELS):
     """The per-voxel discard gates (``gate_sides``) on ``sal``'s device,
     from the saliency's FD Hessian (negated if ``neg_hess``), against
     the channel-major ``tensor`` (6, Z, Y, X) and ``vector`` (3, Z, Y,
     X), read in place.  Runs over z slabs of about ``slab_voxels``.
-    Returns the (Z, Y, X) bool discard mask."""
-    nz, ny, nx = sal.shape
-    out = torch.zeros(sal.shape, dtype=torch.bool, device=sal.device)
-    planes = max(1, slab_voxels // max(ny * nx, 1))
-    for z0 in range(0, nz, planes):
-        z1 = min(nz, z0 + planes)
-        hess = _hessian_slab(sal, z0, z1)
+    Returns the (Z, Y, X) bool discard mask; for ShardedVolumes, one
+    block at a time, the saliency read with a 2-deep halo (its Hessian
+    at a block's faces reads one voxel past them, at the volume's faces
+    one voxel further in)."""
+    args = (threshold_tensor, threshold_vector, order, consider_sign,
+            neg_hess, slab_voxels)
+    if not isinstance(sal, ShardedVolume):
+        nz, ny, _ = sal.shape
+        return _gates(sal, (0, 0), sal.shape, 0, nz, 0, ny, tensor, vector,
+                      *args)
+    bz, by = sal.block_shape
+
+    def cell(iz, iy, b):
+        return _gates(haloed_block(sal, iz, iy, 2), (iz * bz - 2, iy * by - 2),
+                      sal.shape, iz * bz, (iz + 1) * bz, iy * by,
+                      (iy + 1) * by,
+                      None if tensor is None else tensor.blocks[iz][iy],
+                      None if vector is None else vector.blocks[iz][iy],
+                      *args)
+    return sal.with_blocks(cell)
+
+
+def _gates(src, org, shape, za, zb, ya, yb, tensor, vector, threshold_tensor,
+           threshold_vector, order, consider_sign, neg_hess, slab_voxels):
+    """The discard gates of the voxels [za, zb) x [ya, yb) x X of the
+    global saliency, ``src`` holding its planes and rows from ``org`` on
+    (``features.hessian.fd_slab``); ``tensor`` and ``vector`` cover just
+    those voxels."""
+    nz, ny, nx = shape
+    if min(nz, ny) < 3:     # a whole thin volume: the plain stencil
+        hess_of = lambda z0, z1: hessian_fd(src)[z0:z1]  # noqa: E731
+    else:
+        def hess_of(z0, z1):
+            return fd_slab(src, z0, z1, ya, yb, org, shape)
+    out = torch.zeros((zb - za, yb - ya, nx), dtype=torch.bool,
+                      device=src.device)
+    planes = max(1, slab_voxels // max((yb - ya) * nx, 1))
+    for z0 in range(za, zb, planes):
+        z1 = min(zb, z0 + planes)
+        hess = hess_of(z0, z1)
         if neg_hess:
             hess = -hess
+        sl = slice(z0 - za, z1 - za)
         for lhs, rhs in gate_sides(
-                hess, None if tensor is None
-                else tensor[:, z0:z1].movedim(0, -1),
-                None if vector is None else vector[:, z0:z1].movedim(0, -1),
+                hess, None if tensor is None else tensor[:, sl].movedim(0, -1),
+                None if vector is None else vector[:, sl].movedim(0, -1),
                 threshold_tensor, threshold_vector, order, consider_sign):
-            out[z0:z1] |= lhs < rhs
+            out[sl] |= lhs < rhs
     return out
 
 
@@ -222,7 +245,7 @@ class ConnectResult:
 
 
 def _host(t, dtype=None):
-    a = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+    a = to_host_np(t) if isinstance(t, (torch.Tensor, ShardedVolume)) \
         else np.asarray(t)
     return a if dtype is None else np.ascontiguousarray(a, dtype)
 
@@ -259,8 +282,10 @@ def label_connected(
     report: Optional[Report] = None,
 ) -> ConnectResult:
     """``saliency``, ``mask``, ``vector`` and ``tensor`` are tensors on
-    one device (the gates, seeds and compaction run there) or numpy
-    arrays (on the CPU).  Unlike the JAX package, ``tensor`` and
+    one device (the gates, seeds and compaction run there), numpy arrays
+    (on the CPU), or ShardedVolumes of one partition (the gates, seeds
+    and compaction run block by block, the candidate lists merged into
+    the single-device raster order: the same labels).  Unlike the JAX package, ``tensor`` and
     ``vector`` are CHANNEL-MAJOR, (6, Z, Y, X) and (3, Z, Y, X), and are
     read in place.  ``compact=False`` runs the dense native flood over
     the whole volume (same labels).  ``want_dense_vectors``: build
@@ -268,12 +293,15 @@ def label_connected(
     writer reads it); False skips it, labels and cluster statistics
     unchanged.  ``report`` collects the stage spans."""
     rep = report if report is not None else Report(None)
-    sal = torch.as_tensor(saliency, dtype=torch.float32)
-    dev = sal.device
+    sharded = isinstance(saliency, ShardedVolume)
+    sal = saliency if sharded else torch.as_tensor(saliency,
+                                                   dtype=torch.float32)
+    dev = sal.blocks[0][0].device if sharded else sal.device
 
     def on_dev(t, dtype=torch.float32):
-        return None if t is None else torch.as_tensor(t, dtype=dtype,
-                                                      device=dev)
+        if t is None or isinstance(t, ShardedVolume):
+            return t
+        return torch.as_tensor(t, dtype=dtype, device=dev)
 
     tensor, vector = on_dev(tensor), on_dev(vector)
     mask_t = on_dev(mask)
@@ -361,13 +389,18 @@ def _flood_compact(sal, discard, mask_t, offs, sign, threshold_saliency,
     host.  Returns (labels, basin2cluster, basin2polarity, vec_std)."""
     nz, ny, nx = shape = tuple(sal.shape)
     n_basins = len(seed_locs)
-    with stage("connect: candidate mask + compaction", rep):
-        parts = compact_candidates(sal, discard, mask_t, tensor, vector,
-                                   threshold_saliency, sign)
-    with stage("connect: candidate copy", rep):
-        zyx, sal_c, disc_c, tens_c, vec_c = (
-            None if p is None else p.cpu().numpy() for p in parts)
-        del parts
+    if isinstance(sal, ShardedVolume):
+        zyx, sal_c, disc_c, tens_c, vec_c = _candidates_sharded(
+            sal, discard, mask_t, tensor, vector, threshold_saliency, sign,
+            rep)
+    else:
+        with stage("connect: candidate mask + compaction", rep):
+            parts = compact_candidates(sal, discard, mask_t, tensor, vector,
+                                       threshold_saliency, sign)
+        with stage("connect: candidate copy", rep):
+            zyx, sal_c, disc_c, tens_c, vec_c = (
+                None if p is None else p.cpu().numpy() for p in parts)
+            del parts
     n_cand = len(zyx)
     rep.record_count("connect candidates", n_cand)
 
@@ -431,6 +464,36 @@ def compact_candidates(sal, discard, mask_t, tensor, vector,
              else discard[z, y, x].to(torch.uint8))] + [
         None if f is None else f[:, z, y, x].T.contiguous()
         for f in (tensor, vector)]
+
+
+def _candidates_sharded(sal, discard, mask_t, tensor, vector,
+                        threshold_saliency, sign, rep):
+    """``compact_candidates`` block by block, each block's lists copied
+    to the host with global (z, y, x), then merged into the
+    single-device raster order."""
+    bz, by = sal.block_shape
+    lists = []
+    with stage("connect: candidate mask + compaction + copy", rep):
+        for iz, iy, b in sal.cells():
+            def blk(v):
+                return None if v is None else v.blocks[iz][iy]
+            parts = compact_candidates(
+                b, blk(discard), blk(mask_t), blk(tensor), blk(vector),
+                threshold_saliency, sign)
+            host = [None if p is None else p.cpu().numpy() for p in parts]
+            host[0] = host[0] + np.array([iz * bz, iy * by, 0])
+            lists.append(host)
+            del parts
+    with stage("connect: candidate merge", rep):
+        _, ny, nx = sal.shape
+        parts = [None if p[0] is None else np.concatenate(p)
+                 for p in zip(*lists)]
+        del lists
+        zyx = parts[0]
+        srt = np.argsort((zyx[:, 0] * ny + zyx[:, 1]) * nx + zyx[:, 2],
+                         kind="stable")
+        return [None if p is None else np.ascontiguousarray(p[srt])
+                for p in parts]
 
 
 def _flood_args(seed_locs, seed_scores, offs):

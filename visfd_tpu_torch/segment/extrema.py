@@ -11,19 +11,24 @@ discovery order like the reference's tuple sort); an optional label
 image marks maxima plateaus with +rank, minima with -rank, 0 elsewhere
 (positive only when a single kind is requested).
 
-1. Per-voxel neighbour comparisons over slices of the volume (no padded
-   copies) give has_lower / has_higher / touches_border / has_same
-   flags; an out-of-bounds or masked neighbour is not usable, and NaN
-   compares false, as in the JAX package.
-2. Fast path, when voxels with an equal-valued neighbour are rare: the
-   singleton extrema are compacted with ``torch.nonzero`` (raster
-   order) and only their (index, score) lists reach the host; the
+The work walks the (z, y) blocks of a ``parallel.mesh.ShardedVolume``
+(a plain tensor is the one block of a 1 x 1 grid; the mesh form is
+``parallel.sharded_features.find_extrema_sharded``), each block reading
+its neighbours through a 1-voxel halo (``parallel.halo.halo1``):
+
+1. per-voxel neighbour comparisons give has_lower / has_higher /
+   touches_border / has_same flags; an out-of-bounds or masked
+   neighbour is not usable, and NaN compares false, as in the JAX
+   package;
+2. fast path, when voxels with an equal-valued neighbour are rare: the
+   singleton extrema are compacted with ``torch.nonzero`` and only their
+   (index, score) lists reach the host, merged in raster order; the
    plateau voxels are compacted too and their components built on the
    host with ``scipy.sparse.csgraph.connected_components`` (each root is
    the plateau's smallest flat index, the reference's raster-first
-   representative).
-3. Plateau-heavy inputs (integer-valued images): min-label propagation
-   with pointer jumping on the device until nothing changes, then
+   representative);
+3. plateau-heavy inputs (integer-valued images): min-label propagation
+   with pointer jumps on the device until nothing changes, then
    ``postprocess_extrema`` on the host.
 """
 
@@ -36,6 +41,11 @@ import numpy as np
 import scipy.sparse
 import scipy.sparse.csgraph
 import torch
+
+from visfd_tpu_torch.parallel.blocks import SENT, Geom, fixpoint, nb
+from visfd_tpu_torch.parallel.gather import to_host_np
+from visfd_tpu_torch.parallel.halo import halo1
+from visfd_tpu_torch.parallel.mesh import ShardedVolume, as_blocks, bmap
 
 
 def neighbor_offsets(connectivity: int) -> Tuple[Tuple[int, int, int], ...]:
@@ -64,40 +74,22 @@ def flat_to_xyz(index, shape_zyx):
     return ix, iy, iz
 
 
-def _pair_slices(shape, off):
-    """(dest, src): slices of the voxels p whose neighbour p + off lies in
-    the volume, and of those neighbours."""
-    dest, src = [], []
-    for n, d in zip(shape, off):
-        dest.append(slice(max(0, -d), n - max(0, d)))
-        src.append(slice(max(0, d), n + min(0, d)))
-    return tuple(dest), tuple(src)
-
-
-def _valid(x: torch.Tensor, mask) -> torch.Tensor:
-    if mask is None:
-        return torch.ones(x.shape, dtype=torch.bool, device=x.device)
-    return mask != 0
-
-
-def _extrema_flags(x, valid, offsets):
-    """(has_lt, has_gt, border, has_same), each & valid: does a usable
-    neighbour (in bounds and in the mask) compare lower, higher, equal;
-    is a neighbour unusable."""
-    has_lt = torch.zeros_like(valid)
-    has_gt = torch.zeros_like(valid)
-    has_same = torch.zeros_like(valid)
-    border = torch.zeros_like(valid)
+def _block_flags(xp, vp, offsets):
+    """(has_lt, has_gt, border, has_same) of a block's voxels, each &
+    valid, from its values and validity padded by one voxel (validity
+    False beyond the volume): does a usable neighbour (in the volume and
+    the mask) compare lower, higher, equal; is a neighbour unusable.  NaN
+    compares false, as in the JAX package."""
+    c, v = nb(xp, (0, 0, 0)), nb(vp, (0, 0, 0))
+    has_lt, has_gt, has_same, border = (torch.zeros_like(v)
+                                        for _ in range(4))
     for off in offsets:
-        d, s = _pair_slices(x.shape, off)
-        usable = torch.zeros_like(valid)
-        usable[d] = valid[s]
-        border |= ~usable
-        c, nv, u = x[d], x[s], usable[d]
-        has_lt[d] |= u & (nv < c)
-        has_gt[d] |= u & (nv > c)
-        has_same[d] |= u & (nv == c)
-    return has_lt & valid, has_gt & valid, border & valid, has_same & valid
+        u, nv = nb(vp, off), nb(xp, off)
+        border |= ~u
+        has_lt |= u & (nv < c)
+        has_gt |= u & (nv > c)
+        has_same |= u & (nv == c)
+    return has_lt & v, has_gt & v, border & v, has_same & v
 
 
 def _f32_bound(thr, is_min):
@@ -191,32 +183,35 @@ def _plateau_reduce(zyx, vals, p_lt, p_gt, p_bd, same_mat, offsets, shape):
     return out
 
 
-def _extrema_device(x, valid, offsets):
-    """Plateau labels by min-label propagation with pointer jumping
-    (converges in O(log diameter) rounds): the label of a voxel is the
-    smallest flat index of its plateau, -1 outside the mask.  Returns
-    (labels, has_lt, has_gt, border) as host arrays."""
-    n = x.numel()
-    has_lt, has_gt, border, _ = _extrema_flags(x, valid, offsets)
-    idx = torch.arange(n, dtype=torch.int64, device=x.device).reshape(
-        x.shape)
-    same = []
-    for off in offsets:
-        d, s = _pair_slices(x.shape, off)
-        same.append((d, s, valid[s] & (x[s] == x[d])))
-    labels = idx
-    while True:
-        new = labels.clone()
-        for d, s, eq in same:
-            new[d] = torch.where(eq, torch.minimum(new[d], labels[s]),
-                                 new[d])
-        flat = new.reshape(-1)
-        new = flat[flat].reshape(x.shape)
-        if not bool((new != labels).any()):
-            break
-        labels = new
-    labels = torch.where(valid, labels, -1)
-    return [t.cpu().numpy() for t in (labels, has_lt, has_gt, border)]
+def _extrema_device(xs, valid, offsets) -> ShardedVolume:
+    """Plateau labels (the smallest flat index of each equal-valued
+    component, -1 outside the mask) by min-label propagation over the
+    blocks (a halo exchange each round) with block-local pointer jumps,
+    until no block changes."""
+    geom = Geom(xs)
+    pads = {(iz, iy): (halo1(xs, iz, iy, float("nan")),
+                       halo1(valid, iz, iy, False))
+            for iz, iy, _ in xs.cells()}
+
+    def step(lab):
+        flags = []
+
+        def cell(iz, iy, l0):
+            xp, vp = pads[iz, iy]
+            lp = halo1(lab, iz, iy, SENT)
+            c, new = nb(xp, (0, 0, 0)), l0
+            for off in offsets:
+                eq = nb(vp, off) & (nb(xp, off) == c)
+                new = torch.where(eq, torch.minimum(new, nb(lp, off)), new)
+            inblk, (jl,) = geom.jump(iz, iy, new)
+            new = torch.where(inblk, jl, new)
+            flags.append((new != l0).any())
+            return new
+        return lab.with_blocks(cell), flags
+
+    lab, _ = fixpoint(step, xs.with_blocks(
+        lambda iz, iy, b: geom.idx(iz, iy, b.device)))
+    return bmap(lambda t, v: torch.where(v, t, -1), lab, valid)
 
 
 @dataclasses.dataclass
@@ -245,51 +240,107 @@ def find_extrema(
     allow_borders: bool = True,
     want_label_image: bool = True,
 ) -> ExtremaResult:
-    """Find plateau extrema of the (Z, Y, X) ``x`` (a tensor, computed on
-    its device, or a numpy array, on the CPU); see the module
+    """Find plateau extrema of the (Z, Y, X) ``x``: a tensor (computed on
+    its device), a numpy array (on the CPU) or a ShardedVolume (block by
+    block, ``mask`` then of the same partition); see the module
     docstring."""
-    x = torch.as_tensor(x, dtype=torch.float32)
-    mask = None if mask is None else torch.as_tensor(mask, device=x.device)
-    valid = _valid(x, mask)
+    xs = as_blocks(x if isinstance(x, ShardedVolume)
+                   else torch.as_tensor(x, dtype=torch.float32))
+    if mask is None:
+        valid = xs.with_blocks(lambda iz, iy, b: torch.ones_like(
+            b, dtype=torch.bool))
+    else:
+        valid = bmap(lambda m: m != 0, mask if isinstance(
+            mask, ShardedVolume) else as_blocks(torch.as_tensor(
+                mask, device=xs.blocks[0][0].device)))
     offs = neighbor_offsets(connectivity)
-    nz, ny, nx = x.shape
-    n = x.numel()
-
-    has_lt, has_gt, border, has_same = _extrema_flags(x, valid, offs)
+    _, ny, nx = xs.shape
+    bz, by = xs.block_shape
     t32_min = _f32_bound(minima_threshold, is_min=True)
     t32_max = _f32_bound(maxima_threshold, is_min=False)
-    has_same &= _relevant(x, t32_min, t32_max, find_minima, find_maxima)
-    n_same = int(has_same.sum())
-    if n_same * max(len(offs), 1) > n // 8:
+    flags, n_same = {}, 0
+    for iz, iy, b in xs.cells():
+        f = list(_block_flags(halo1(xs, iz, iy, float("nan")),
+                              halo1(valid, iz, iy, False), offs))
+        f[3] &= _relevant(b, t32_min, t32_max, find_minima, find_maxima)
+        n_same += int(f[3].sum())
+        flags[iz, iy] = f
+    if n_same * max(len(offs), 1) > int(np.prod(xs.shape)) // 8:
         # plateau-heavy (integer-valued / flat-background images)
-        labels, lt, gt, bd = _extrema_device(x, valid, offs)
+        host = [to_host_np(xs.with_blocks(
+            lambda iz, iy, b, k=k: flags[iz, iy][k])) for k in range(3)]
+        del flags
+        labels = to_host_np(_extrema_device(xs, valid, offs))
         return postprocess_extrema(
-            labels, lt, gt, bd, x.cpu().numpy(),
+            labels.astype(np.int64), *host, to_host_np(xs),
             find_minima=find_minima, find_maxima=find_maxima,
             minima_threshold=minima_threshold,
             maxima_threshold=maxima_threshold,
             allow_borders=allow_borders, want_label_image=want_label_image)
 
+    # singleton extrema and plateau voxels compacted per block, merged in
+    # the single-device raster order
+    singles = {k: ([], []) for k, on in (("min", find_minima),
+                                        ("max", find_maxima)) if on}
+    gathered = []
+    for iz, iy, b in xs.cells():
+        v = valid.blocks[iz][iy]
+        lt, gt, bd, same = flags.pop((iz, iy))
+        for kind, (idx, sc) in singles.items():
+            z, y, xx, s = _singletons(b, v, lt, gt, same, bd, kind,
+                                      t32_min, t32_max, allow_borders)
+            idx.append(((z + iz * bz) * ny + y + iy * by) * nx + xx)
+            sc.append(s)
+        if bool(same.any()):
+            g = _plateau_gather(
+                halo1(xs, iz, iy, float("nan")), halo1(valid, iz, iy, False),
+                *(torch.nn.functional.pad(t, (1,) * 6, value=False)
+                  for t in (lt, gt, bd, same)), offs)
+            g[0] = g[0] - 1 + np.array([iz * bz, iy * by, 0])
+            gathered.append(g)
     plateaus: List[tuple] = []
-    if n_same:
-        plateaus = _plateau_reduce(
-            *_plateau_gather(x, valid, has_lt, has_gt, border, has_same,
-                             offs), offs, x.shape)
+    if gathered:
+        parts = [np.concatenate(p) for p in zip(*gathered)]
+        zyx = parts[0]
+        srt = np.argsort((zyx[:, 0] * ny + zyx[:, 1]) * nx + zyx[:, 2],
+                         kind="stable")
+        plateaus = _plateau_reduce(*(p[srt] for p in parts), offs, xs.shape)
+    merged = {}
+    for kind, (idx, sc) in singles.items():
+        idx, sc = np.concatenate(idx), np.concatenate(sc)
+        srt = np.argsort(idx, kind="stable")
+        merged[kind] = (idx[srt], sc[srt])
+    return _assemble(merged, plateaus, xs.shape, find_minima, find_maxima,
+                     minima_threshold, maxima_threshold, allow_borders,
+                     want_label_image)
 
+
+def _singletons(x, valid, has_lt, has_gt, has_same, border, kind, t32_min,
+                t32_max, allow_borders):
+    """The extrema of one kind that are single voxels, compacted on the
+    device: host (z, y, x, score) arrays in raster order.  The correctly
+    rounded float32 bounds reproduce the float64 comparison of the full
+    path."""
+    if kind == "min":
+        cand = valid & ~has_lt & (x <= _scalar(t32_min, x))
+    else:
+        cand = valid & ~has_gt & (x >= _scalar(t32_max, x))
+    cand &= ~has_same
+    if not allow_borders:
+        cand &= ~border
+    z, y, xx = torch.nonzero(cand, as_tuple=True)
+    sc = x[z, y, xx].cpu().numpy()
+    return tuple(t.cpu().numpy().astype(np.int64) for t in (z, y, xx)) + (sc,)
+
+
+def _assemble(singles, plateaus, shape, find_minima, find_maxima,
+              minima_threshold, maxima_threshold, allow_borders,
+              want_label_image) -> "ExtremaResult":
+    """The sorted extremum lists (and label image) from the singleton
+    extrema, ``{kind: (flat indices ascending, scores)}``, and the
+    reduced plateaus (``_plateau_reduce``)."""
     def compact(kind, thr):
-        # singleton extrema: the correctly rounded f32 bound reproduces
-        # the float64 comparison of the full path
-        if kind == "min":
-            cand = valid & ~has_lt & (x <= _scalar(t32_min, x))
-        else:
-            cand = valid & ~has_gt & (x >= _scalar(t32_max, x))
-        cand &= ~has_same
-        if not allow_borders:
-            cand &= ~border
-        zyx = torch.nonzero(cand)
-        sc = x[tuple(zyx.T)].cpu().numpy()
-        zyx = zyx.cpu().numpy()
-        idx = (zyx[:, 0] * ny + zyx[:, 1]) * nx + zyx[:, 2]
+        idx, sc = singles[kind]
         nv = np.ones(len(idx), np.int64)
         # the plateau extrema of this kind, merged in raster order
         p_sel = []
@@ -326,12 +377,12 @@ def find_extrema(
     label_image = None
     if want_label_image:
         members = {p[0]: p[6] for p in plateaus}
-        flat = np.zeros(n, np.int64)
+        flat = np.zeros(int(np.prod(shape)), np.int64)
         for rank, ridx in enumerate(min_idx):
             flat[members.get(int(ridx), [ridx])] = -(rank + 1)
         for rank, ridx in enumerate(max_idx):
             flat[members.get(int(ridx), [ridx])] = rank + 1
-        label_image = flat.reshape(x.shape)
+        label_image = flat.reshape(shape)
         if not (find_minima and find_maxima):
             label_image = np.abs(label_image)
     return ExtremaResult(
