@@ -79,8 +79,8 @@ Phases:
 7. the segmentation handlers and the intensity map: (7a) ``-find-minima``
    and ``-find-maxima`` at 1024 x 1024 x 512 (a membrane phantom blurred
    at sigma 3): walls, extrema counts, card against CPU on a crop; (7b)
-   ``-watershed minima``, the native flood, at 256 or 128 x 512 x 512
-   (whichever the time left allows; printed), its microseconds per voxel,
+   ``-watershed minima``, the native flood, at 128 x 512 x 512, its
+   microseconds per voxel,
    the flood against its Python twin on a crop, ``ref_gauss.mrc`` with
    and without ``-markers`` card against CPU; (7c)
    ``-watershed-device`` at 1024 x 1024 x 512: wall, each loop's rounds,
@@ -92,7 +92,29 @@ Phases:
    (spans, card memory, host RSS, launches); (7e) ``-thresh2``,
    ``-thresh4``, ``-clip``, ``-cl``, ``-thresh-gauss``, ``-rescale``,
    ``-fill``, ``-mask-rect``/``-mask-sphere`` and ``-image-size``, card
-   against CPU.
+   against CPU;
+8. the convolution filters and blob detection: (8a) the blur's per-axis
+   mode (the halfwidths no fused tile holds) against its twin at
+   halfwidths 60 and 80 on (64, 512, 512), timed beside cuDNN ``conv3d``
+   per axis (TF32 off), and against the fused kernel where both run;
+   the per-axis mode at 8e's ``-gauss 21`` (halfwidth 55) on
+   (256, 512, 512) against its twin; the fused kernel at the blob ladder's halfwidths 6-11 at 1024 x 1024
+   x 512; the dense-correlation kernel at -ggauss's and -dogg's kernels
+   on (256, 512, 512) beside ``conv3d``; (8b) ``filter_mrc -w 19.6 -mask
+   M -blob minima B 160 280 1.01`` (the reference's ladder, 58 scales)
+   on a seeded 1024 x 1024 x 512 phantom of 3000 dark spheres: the
+   ``blur3`` launches against the ladder's 4 a scale, the spans (read,
+   LoG ladder, extremum test, compaction, NMS, drawing, write), wall,
+   peak card memory, host peak RSS, and the share of the phantom's
+   centres found within 1 voxel; (8c) the blob lists of a 64 x 128 x 128
+   crop, card against CPU, a blob in one list only allowed where its
+   extremum margin is below 1e-4 (counted); (8d) ``-discard-blobs
+   -blob-separation 1.1`` and ``-draw-spheres`` on 8b's list at full
+   size; (8e) ``-gauss 21`` (halfwidth 55: the per-axis mode),
+   ``-ggauss``, ``-dog``, ``-dogg``, ``-log``, ``-fluct``, ``-median 2``,
+   ``-erode 2`` and ``-open 2`` at 512 x 512 x 256, each card against
+   CPU on a crop; (8f) ``-blob … -mesh 4`` on one card against 8b, bit
+   for bit.
 
 A failed check is reported where it happens and the later phases still
 run; the script then exits non-zero without a result line.  On success
@@ -101,7 +123,9 @@ time, its plain twin's, the least time the card could take for the same
 work, where one PyTorch call computes the same function that call's
 time, its largest absolute and relative error over the checks, and its
 launches in one run: the vote score with its vector has one entry for
-one device, from 6c, and one per block, from 7d's ``-mesh`` run) and
+one device, from 6c, and one per block, from 7d's ``-mesh`` run; the
+blur's per-axis mode counts 8e's ``-gauss 21`` run and the dense kernel
+8e's ``-ggauss`` run) and
 the last line ``{"ok": true, "device": {...}}``.  TF32
 is turned off for cuDNN and matmuls (the twins use neither; the
 library yardsticks are timed in float32).
@@ -2006,11 +2030,10 @@ def phase_connect_normals(chk, card, tmp, thr, shape=NORMALS_SHAPE,
 
 SEG_SHAPE = MESH_SHAPE          # (Z, Y, X) of 7a, 7c and the 7d timing
 SEG_CROP = (128, 256, 256)      # 7a's card-against-CPU crop
-WS_SHAPES = ((256, 512, 512), (128, 512, 512))   # 7b: the larger if time
-# 7b takes WS_SHAPES[0] only with this much of the 1200 s left: the
-# native flood takes ~3.6 us a voxel there (245 s at 256 x 512 x 512 on
-# an H100 80GB HBM3 at 700 W), and 7c-7e ~250 s more
-WS_BUDGET_S = 850.0
+# 7b's shape: the native flood takes ~3.6 us a voxel (245 s at
+# 256 x 512 x 512 on an H100 80GB HBM3 at 700 W), so half that depth
+# leaves phase 8 its room in the 1200 s
+WS_SHAPE = (128, 512, 512)
 PY_CROP = 48                    # 7b's native-against-Python crop
 PROP_CROP = (64, 128, 128)      # 7c's card-against-CPU crop
 DISTINCT_CROP = (24, 48, 48)    # 7c's crop against the host Meyer flood
@@ -2102,18 +2125,16 @@ def phase_extrema(chk, card, tmp, dev="cuda"):
     return fin
 
 
-def phase_watershed_host(chk, card, tmp, t_start, dev="cuda"):
+def phase_watershed_host(chk, card, tmp, dev="cuda"):
     """7b: -watershed minima (the host Meyer flood, seeds on the card)."""
     import torch
     from visfd_tpu_torch.segment import extrema as TE
     from visfd_tpu_torch.segment import watershed as TW
 
-    left = 1200.0 - (time.perf_counter() - t_start)
-    shape = WS_SHAPES[0] if left > WS_BUDGET_S else WS_SHAPES[1]
+    shape = WS_SHAPE
     label = f"{'x'.join(map(str, shape[::-1]))} (X x Y x Z)"
     print(f"== phase 7b: -watershed minima (native flood), {label} "
-          f"({left:.0f} s of the 1200 s left; {WS_BUDGET_S:.0f} s needed for "
-          f"{WS_SHAPES[0]}) [{card}]", flush=True)
+          f"[{card}]", flush=True)
     from visfd_tpu_torch.io import mrc
     vol = _seg_phantom(shape, SEED + 71, dev)
     fin, fout = os.path.join(tmp, "ws_in.mrc"), os.path.join(tmp, "ws.mrc")
@@ -2392,6 +2413,480 @@ def phase_intensity(chk, card, tmp, dev="cuda"):
                   f"CPU, max|d|={err:.3g}")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the convolution filters and blob detection
+
+BLOB_SHAPE = MESH_SHAPE         # (Z, Y, X) of 8b, 8d and 8f
+BLOB_W = 19.6                   # -w: the reference's blob pipeline
+BLOB_LADDER = "160 280 1.01"    # ... and its ladder (diameters, physical)
+BLOB_CROP = (64, 128, 128)      # 8c's card-against-CPU crop
+FILTER_SHAPE = MAIN_SHAPE       # 8e
+FILTER_CROP = (32, 64, 64)      # 8e's card-against-CPU crop
+AXIS_SHAPE = (64, 512, 512)     # 8a: the per-axis mode
+AXIS_HWS = (60, 80)
+LADDER_HWS = (6, 7, 8, 9, 10, 11)  # the ladder's LoG halfwidths
+# 8e: the filters at -w 1; -gauss 21 takes halfwidth 55 (no fused tile
+# holds it: the per-axis mode), -ggauss / -dogg the dense kernel
+FILTER_ARGS = ("-gauss 21", "-ggauss 2", "-dog 2 4", "-dogg 2 4", "-log 2",
+               "-fluct 3", "-median 2", "-erode 2", "-open 2")
+FILTER_EXACT = ("-median", "-erode", "-open")
+KERNELS.update({
+    # the per-axis mode of csrc/blur.cu (halfwidths above the fused tile;
+    # the JAX package sends those to XLA's conv1d, visfd_tpu/ops/conv.py:96)
+    "blur3_axis": ("visfd_tpu_torch/csrc/blur.cu",
+                   "visfd_tpu/ops/blur_pallas.py:51"),
+    # the dense correlation (the JAX package's is XLA's conv, no Pallas)
+    "conv3d_dense": ("visfd_tpu_torch/csrc/conv3d.cu",
+                     "visfd_tpu/ops/conv.py:164"),
+})
+
+
+def _gauss_taps(hw, dev):
+    import torch
+    from visfd_tpu_torch.ops import kernels as K
+    return [torch.as_tensor(K.gauss_kernel_1d(hw / 2.65, hw), device=dev)
+            for _ in range(3)]
+
+
+def _conv3d_library(x, kflip):
+    """The library yardstick of a dense correlation: one cuDNN conv3d
+    (it correlates), TF32 off for the call."""
+    import torch
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        return torch.nn.functional.conv3d(
+            x[None, None], kflip[None, None],
+            padding=tuple(s // 2 for s in kflip.shape))[0, 0]
+
+
+def phase_filter_kernels(chk, card, dev="cuda"):
+    """8a: the per-axis blur mode against its twin at halfwidths 60 and 80
+    on AXIS_SHAPE (and against the fused kernel where both run) and at
+    8e's -gauss 21 (halfwidth 55) on FILTER_SHAPE, the fused
+    kernel at the ladder's halfwidths at BLOB_SHAPE, the dense kernel at
+    8e's -ggauss and -dogg kernels on FILTER_SHAPE: checks, CUDA-event
+    times, bounds and library calls.  Returns per-kernel stats."""
+    import torch
+    from visfd_tpu_torch.ops import blur_cuda, dense_cuda
+    from visfd_tpu_torch.ops import kernels as K
+
+    print(f"== phase 8a: the blur's per-axis mode at halfwidths {AXIS_HWS} "
+          f"on {AXIS_SHAPE} and 55 on {FILTER_SHAPE}, the fused blur at the ladder's halfwidths on "
+          f"{BLOB_SHAPE}, the dense kernel on {FILTER_SHAPE} [{card}]",
+          flush=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 80)
+    stats = {}
+    x = torch.randn(AXIS_SHAPE, generator=gen, device=dev)
+    nvox = x.numel()
+    for hw in AXIS_HWS:
+        ks = _gauss_taps(hw, dev)
+        ks[0] = ks[0] * torch.linspace(0.5, 1.5, 2 * hw + 1, device=dev)
+        n0 = blur_cuda.blur3_axis.launches
+        got = blur_cuda.blur3(x, ks)
+        chk.check(blur_cuda.blur3_axis.launches == n0 + 3,
+                  f"blur3 takes the per-axis mode at hw {hw} (3 launches)")
+        want, pms = timed_ms(lambda: blur_cuda.blur3_plain(x, ks))
+        ok, err, _ = close(got, want, 1e-5, 1e-6)
+        chk.check(ok, f"blur3_axis hw={hw} (asymmetric x taps) against "
+                      f"blur3_plain: max|d|={err:.3g}")
+        del want
+        ms = cuda_ms(lambda: blur_cuda.blur3_axis(x, ks), 5)
+        conv3d = torch.nn.functional.conv3d
+        w3 = [ks[2].flip(0)[:, None, None], ks[1].flip(0)[None, :, None],
+              ks[0].flip(0)[None, None, :]]
+
+        def library():
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                v = x[None, None]
+                for w in w3:
+                    v = conv3d(v, w[None, None], padding=tuple(
+                        s // 2 for s in w.shape))
+                return v[0, 0]
+        lib = library()
+        ok_l, err_l, _ = close(lib, got, 1e-4, 1e-5)
+        chk.check(ok_l, f"conv3d per axis (library, TF32 off) == blur3_axis "
+                        f"hw={hw} to rtol 1e-4: max|d|={err_l:.3g}")
+        del lib, got
+        lms = cuda_ms(library, 3)
+        b = bound_ms(8 * nvox, 3 * BLUR_OPS_PER_TAP * (2 * hw + 1) * nvox)
+        print(f"  blur3_axis hw={hw}: kernel {ms:.3f} ms (3 launches), plain "
+              f"{pms:.3f} ms, conv3d per axis {lms:.3f} ms, bound "
+              f"{b[0]:.3f} ms ({b[1]}) [{card}]", flush=True)
+        if hw == AXIS_HWS[0]:
+            stats["blur3_axis"] = {"err": err, "ms": ms, "plain_ms": pms,
+                                   "bound_ms": b[0], "bound_by": b[1],
+                                   "library_ms": lms}
+        else:
+            stats["blur3_axis"]["err"] = worst(stats["blur3_axis"]["err"],
+                                               err)
+    # where both run, the per-axis mode sums the fused kernel's terms
+    ks = _gauss_taps(20, dev)
+    a, b_ = blur_cuda.blur3(x, ks), blur_cuda.blur3_axis(x, ks)
+    ok, err, _ = close(b_, a, 1e-6, 1e-7)
+    nd = int(torch.count_nonzero(a.view(torch.int32) != b_.view(torch.int32)))
+    chk.check(ok, f"blur3_axis == fused blur3 at hw 20: max|d|={err:.3g}, "
+                  f"{nd} of {nvox} values differ in any bit")
+    del x, a, b_
+    torch.cuda.empty_cache()
+
+    # the per-axis mode as 8e's -gauss 21 -w 1 launches it (the kernels
+    # line reports those launches): FILTER_SHAPE, halfwidth 55, a z pass
+    # of several output segments
+    x = torch.randn(FILTER_SHAPE, generator=gen, device=dev)
+    hw = int(np.floor(21.0 * np.sqrt(-2.0 * np.log(0.03))))
+    ks = [torch.as_tensor(K.gauss_kernel_1d(21.0, hw), device=dev)
+          for _ in range(3)]
+    n0 = blur_cuda.blur3_axis.launches
+    got = blur_cuda.blur3(x, ks)
+    chk.check(hw == 55 and blur_cuda.blur3_axis.launches == n0 + 3,
+              f"blur3 takes the per-axis mode for -gauss 21 (hw {hw}) at "
+              f"{FILTER_SHAPE} (3 launches)")
+    ok, err, _ = close(got, blur_cuda.blur3_plain(x, ks), 1e-5, 1e-6)
+    chk.check(ok, f"blur3_axis hw={hw} at {FILTER_SHAPE} against "
+                  f"blur3_plain: max|d|={err:.3g}")
+    stats["blur3_axis"]["err"] = worst(stats["blur3_axis"]["err"], err)
+    del x, got
+    torch.cuda.empty_cache()
+
+    # the fused kernel at the ladder's halfwidths, at the blob run's size
+    x = torch.randn(BLOB_SHAPE, generator=gen, device=dev)
+    nvox = x.numel()
+    for hw in LADDER_HWS:
+        ks = _gauss_taps(hw, dev)
+        plan = blur_cuda.smem_plan(hw, hw, hw)
+        if hw in (6, 9):
+            got = blur_cuda.blur3(x, ks)
+            ok, err, _ = close(got, blur_cuda.blur3_plain(x, ks), 1e-5, 1e-6)
+            chk.check(ok, f"blur3 hw={hw} at {BLOB_SHAPE} against its twin: "
+                          f"max|d|={err:.3g}")
+            stats.setdefault("blur3", {"err": Err()})
+            stats["blur3"]["err"] = worst(stats["blur3"]["err"], err)
+            del got
+        ms = cuda_ms(lambda: blur_cuda.blur3(x, ks), 3)
+        b = bound_ms(8 * nvox, 3 * BLUR_OPS_PER_TAP * (2 * hw + 1) * nvox)
+        print(f"  blur3 hw={hw} ({'compiled' if plan[0] == 8 and hw <= 8 else 'runtime'} "
+              f"width, {plan[0]} rows): {ms:.3f} ms at {BLOB_SHAPE}, bound "
+              f"{b[0]:.3f} ms ({b[1]}), {100 * b[0] / ms:.0f}% [{card}]",
+              flush=True)
+    del x
+    torch.cuda.empty_cache()
+
+    # the dense kernel at 8e's kernels
+    x = torch.randn(FILTER_SHAPE, generator=gen, device=dev)
+    nvox = x.numel()
+    kernels = {"-ggauss 2": K.gen_gauss_kernel_3d((2.0,) * 3, 2.0, (3,) * 3),
+               "-dogg 2 4": K.dogg_kernel_3d((2.0,) * 3, (4.0,) * 3, 2.0, 2.0,
+                                             -1.0, 0.03)[0]}
+    for name, k in kernels.items():
+        kf = torch.as_tensor(k, device=dev).flip(0, 1, 2).contiguous()
+        got = dense_cuda.conv3d_dense(x, kf)
+        want, pms = timed_ms(lambda: dense_cuda.conv3d_dense_plain(x, kf))
+        ok, err, _ = close(got, want, 1e-5, 1e-6)
+        chk.check(ok, f"conv3d_dense {name} ({'x'.join(map(str, k.shape))} "
+                      f"taps) against its twin: max|d|={err:.3g}")
+        del want
+        lib = _conv3d_library(x, kf)
+        ok_l, err_l, _ = close(lib, got, 1e-4, 1e-5)
+        chk.check(ok_l, f"conv3d (library, TF32 off) == conv3d_dense {name} "
+                        f"to rtol 1e-4: max|d|={err_l:.3g}")
+        del lib, got
+        ms = cuda_ms(lambda: dense_cuda.conv3d_dense(x, kf), 3)
+        lms = cuda_ms(lambda: _conv3d_library(x, kf), 3)
+        b = bound_ms(8 * nvox, 2 * k.size * nvox)
+        print(f"  conv3d_dense {name}: kernel {ms:.3f} ms, plain {pms:.3f} "
+              f"ms, conv3d {lms:.3f} ms, bound {b[0]:.3f} ms ({b[1]}) "
+              f"[{card}]", flush=True)
+        st = stats.setdefault("conv3d_dense", {"err": Err()})
+        st["err"] = worst(st["err"], err)
+        if name == "-ggauss 2":
+            st.update(ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+                      library_ms=lms)
+    del x
+    torch.cuda.empty_cache()
+    return stats
+
+
+def _blob_diameters():
+    """The ladder of ``-blob … BLOB_LADDER`` in voxels at -w BLOB_W."""
+    from visfd_tpu_torch.cli import settings as S
+    s = S.parse_args(f"-in x -blob minima b.txt {BLOB_LADDER}".split())
+    return [d / BLOB_W for d in s.blob_diameters]
+
+
+def _blob_run(chk, card, tmp, fin, fmask, stem, dev, mesh=None):
+    """``filter_mrc -w 19.6 -mask M -in T -out O -blob minima B.txt
+    BLOB_LADDER`` (with -mesh 4 on ``mesh``): (exit code, wall, Report,
+    blur3 launches, peak card GiB, host peak RSS GiB)."""
+    import torch
+    from visfd_tpu_torch.ops import blur_cuda
+    argv = (f"-w {BLOB_W} -mask {fmask} -in {fin} -out {stem}.mrc -blob "
+            f"minima {stem}.txt {BLOB_LADDER}").split()
+    if mesh is not None:
+        argv += ["-mesh", str(MESH_DEVICES)]
+    if dev != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    blur_cuda.blur3.launches = 0
+    with _PeakRss() as rss:
+        rc, wall, rep = _run_cli(argv, dev, mesh)
+    n = blur_cuda.blur3.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30 if dev != "cpu" else 0.0
+    return rc, wall, rep, n, peak, rss.gib
+
+
+def _read_blobs(path):
+    from visfd_tpu_torch.features.blob import BlobList
+    from visfd_tpu_torch.io.coords import read_blob_coords_file
+    crds, diams, scores, _ = read_blob_coords_file(path)
+    return BlobList(crds / BLOB_W, diams / BLOB_W, scores)
+
+
+def _found_share(blobs, centres, mask):
+    """The share of the phantom's centres at least 2 voxels inside the
+    mask with a blob within 1 voxel."""
+    import torch
+    inner = []
+    nz = mask.shape[0]
+    lo = int(np.argmax(mask[:, 0, 0] != 0))
+    hi = nz - int(np.argmax(mask[::-1, 0, 0] != 0))
+    for c in centres:
+        if lo + 2 <= c[0] < hi - 2:
+            inner.append(c)
+    inner = np.asarray(inner, np.float64)
+    if not len(blobs) or not len(inner):
+        return 0.0, len(inner)
+    found = torch.tensor(blobs.crds[:, ::-1].copy())
+    d = torch.cdist(torch.tensor(inner), found).min(1).values
+    return float((d <= 1.0).double().mean()), len(inner)
+
+
+def phase_blob(chk, card, tmp, dev="cuda"):
+    """8b: -blob at BLOB_SHAPE on a seeded phantom of dark spheres: scales,
+    blur3 launches against the ladder's, spans, wall, memory, found
+    share; 8c: the same on a BLOB_CROP crop, card against CPU.  Returns
+    (input, mask, 8b's output stem, the phantom's centres, blur3
+    launches, the LoG halfwidths)."""
+    import torch
+    from visfd_tpu_torch.features import blob as TB
+    from visfd_tpu_torch.io import mrc
+    from visfd_tpu_torch.ops.filters import log_halfwidths
+    from visfd_tpu_torch.utils.phantom import blob_phantom
+
+    label = f"{'x'.join(map(str, BLOB_SHAPE[::-1]))} (X x Y x Z)"
+    diams = _blob_diameters()
+    sig = [d / (2 * np.sqrt(3.0)) for d in diams]
+    tr = float(np.sqrt(-2.0 * np.log(0.03)))
+    hws = sorted({log_halfwidths(s, 0.02, tr)[2][0] for s in sig})
+    print(f"== phase 8b: filter_mrc -w {BLOB_W} -mask M -blob minima "
+          f"{BLOB_LADDER}, {label}: {len(diams)} scales, LoG halfwidths "
+          f"{hws[0]}-{hws[-1]} [{card}]", flush=True)
+    vol, mask, centres, _ = blob_phantom(BLOB_SHAPE, seed=SEED + 81,
+                                         n_blobs=3000, device=dev)
+    fin, fmask = os.path.join(tmp, "blob_in.mrc"), \
+        os.path.join(tmp, "blob_mask.mrc")
+    vol_np, mask_np = vol.cpu().numpy(), mask.cpu().numpy()
+    del vol, mask
+    torch.cuda.empty_cache()
+    mrc.write_mrc(fin, vol_np)
+    mrc.write_mrc(fmask, mask_np)
+    stem = os.path.join(tmp, "blob_one")
+    rc, wall, rep, n_blur, peak, rss = _blob_run(chk, card, tmp, fin, fmask,
+                                                 stem, dev)
+    blobs = _read_blobs(stem + ".txt")
+    out = mrc.read_mrc(stem + ".mrc").data
+    chk.check(rc == 0 and out.shape == BLOB_SHAPE
+              and bool(np.isfinite(out).all()) and len(blobs) > 0,
+              f"{label} -blob: exit {rc}, {len(blobs)} minima, image "
+              f"{out.shape} finite")
+    chk.check(n_blur == 4 * len(diams),
+              f"blur3 launches {n_blur} == 4 per scale x {len(diams)} scales "
+              f"(two masked Gaussians: numerator and mask)")
+    share, n_in = _found_share(blobs, centres, mask_np)
+    chk.check(share >= 0.95, f"phantom centres (of {n_in} inside the mask) "
+                             f"with a blob within 1 voxel: {share:.4f}")
+    t = rep.timings
+    n_sc = len(diams)
+    print(f"  wall {wall:.3f} s; read {t.get('read the tomogram', 0):.3f} s; "
+          f"LoG ladder {t['blob: LoG ladder']:.3f} s "
+          f"({1e3 * t['blob: LoG ladder'] / n_sc:.1f} ms a scale); extremum "
+          f"test {t['blob: extremum test']:.3f} s; compaction + copy "
+          f"{t['blob: compaction + copy']:.3f} s; NMS "
+          f"{t.get('blob: NMS', 0.0):.3f} s; draw spheres "
+          f"{t['draw spheres']:.3f} s; copy to the host "
+          f"{t['copy the result to the host']:.3f} s; write "
+          f"{t['write the tomogram']:.3f} s; {n_sc} scales, {n_blur} blur3 "
+          f"launches; peak card memory {peak:.2f} GiB; host peak RSS "
+          f"{rss:.2f} GiB [{card}]", flush=True)
+    del out
+
+    # 8c: a crop, card against CPU; a blob in one list only must be a
+    # near-tie (extremum margin < 1e-4)
+    print(f"== phase 8c: -blob on a {BLOB_CROP} crop, card against CPU "
+          f"[{card}]", flush=True)
+    z0 = BLOB_SHAPE[0] // 3
+    sl = (slice(z0, z0 + BLOB_CROP[0]), slice(0, BLOB_CROP[1]),
+          slice(0, BLOB_CROP[2]))
+    cin, cmask = os.path.join(tmp, "bc_in.mrc"), os.path.join(tmp,
+                                                               "bc_mask.mrc")
+    xc, mc = np.ascontiguousarray(vol_np[sl]), np.ascontiguousarray(
+        mask_np[sl])
+    mrc.write_mrc(cin, xc)
+    mrc.write_mrc(cmask, mc)
+    lists = []
+    for d in (dev, "cpu"):
+        cs = os.path.join(tmp, f"bc_{d}")
+        _blob_run(chk, card, tmp, cin, cmask, cs, d)
+        lists.append(_read_blobs(cs + ".txt"))
+    ia, ib, only_a, only_b = TB.match_blob_lists(*lists)
+    ok = len(ia) > 0
+    ok &= bool(np.allclose(lists[0].scores[ia], lists[1].scores[ib],
+                           rtol=2e-5, atol=2.0 ** -22 * np.abs(xc).max()
+                           / 0.02 ** 2))
+    flagged = 0
+    for bl, idx in ((lists[0], only_a), (lists[1], only_b)):
+        for i in idx:
+            k = int(np.argmin(np.abs(np.asarray(diams) - bl.diameters[i])))
+            zyx = np.round(bl.crds[i][::-1]).astype(np.int64)
+            mg = TB.extremum_margins(torch.tensor(xc), sig, zyx[None], [k],
+                                     torch.tensor(mc), truncate_ratio=tr)[0]
+            print(f"  near-tie blob at {zyx} d={bl.diameters[i]:.4g}: "
+                  f"margin {mg:.3g}")
+            flagged += 1
+            ok &= bool(mg < 1e-4)
+    chk.check(ok, f"crop lists card == CPU: {len(ia)} blobs in both, "
+                  f"{flagged} near-ties (margin < 1e-4) in one only, scores "
+                  f"to rtol 2e-5 (6 digits in the files)")
+    return fin, fmask, stem, centres, n_blur, hws
+
+
+def phase_blob_tools(chk, card, tmp, blob, dev="cuda"):
+    """8d: -discard-blobs -blob-separation 1.1 and -draw-spheres on 8b's
+    list at BLOB_SHAPE."""
+    import torch
+    from visfd_tpu_torch.io import mrc
+    fin, fmask, stem, centres, _, _ = blob
+    print(f"== phase 8d: -discard-blobs -blob-separation 1.1, -draw-spheres "
+          f"on 8b's list [{card}]", flush=True)
+    nms = os.path.join(tmp, "blob_nms.txt")
+    rc, wall, rep = _run_cli((f"-w {BLOB_W} -mask {fmask} -in {fin} "
+                              f"-discard-blobs {stem}.txt {nms} "
+                              f"-blob-separation 1.1").split(), dev)
+    raw, kept = _read_blobs(stem + ".txt"), _read_blobs(nms)
+    mask_np = mrc.read_mrc(fmask).data
+    share, n_in = _found_share(kept, centres, mask_np)
+    chk.check(rc == 0 and 0 < len(kept) < len(raw) and share >= 0.9,
+              f"-discard-blobs: {len(raw)} -> {len(kept)} blobs; centres with "
+              f"a kept blob within 1 voxel {share:.4f} of {n_in}")
+    print(f"  -discard-blobs: wall {wall:.3f} s; {_spans(rep)} [{card}]",
+          flush=True)
+    fo = os.path.join(tmp, "blob_draw.mrc")
+    torch.cuda.reset_peak_memory_stats()
+    rc, wall, rep = _run_cli((f"-w {BLOB_W} -in {fin} -out {fo} "
+                              f"-draw-spheres {nms} -foreground 5 "
+                              f"-background-scale 1").split(), dev)
+    out = mrc.read_mrc(fo).data
+    n5 = int((out == 5).sum())
+    chk.check(rc == 0 and out.shape == BLOB_SHAPE and n5 > 100 * len(kept),
+              f"-draw-spheres: exit {rc}, {n5} voxels at the foreground "
+              f"({len(kept)} spheres)")
+    print(f"  -draw-spheres: wall {wall:.3f} s; {_spans(rep)}; peak card "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"[{card}]", flush=True)
+    os.unlink(fo)
+
+
+def phase_filters(chk, card, tmp, dev="cuda"):
+    """8e: each filter of FILTER_ARGS at FILTER_SHAPE on the card (wall;
+    the -gauss 21 run's per-axis launches, the -ggauss run's dense
+    kernel launches), and card against CPU on a FILTER_CROP crop.
+    Returns those launch counts."""
+    from visfd_tpu_torch.io import mrc
+    from visfd_tpu_torch.ops import blur_cuda, dense_cuda
+    from visfd_tpu_torch.utils.phantom import blob_phantom
+
+    label = f"{'x'.join(map(str, FILTER_SHAPE[::-1]))} (X x Y x Z)"
+    print(f"== phase 8e: the filters at {label}, card against CPU on a "
+          f"{FILTER_CROP} crop [{card}]", flush=True)
+    vol, _, _, _ = blob_phantom(FILTER_SHAPE, seed=SEED + 82, n_blobs=800,
+                                device=dev)
+    vol = vol.cpu().numpy()
+    fin, fcrop = os.path.join(tmp, "f_in.mrc"), os.path.join(tmp, "f_crop.mrc")
+    mrc.write_mrc(fin, vol)
+    z0 = FILTER_SHAPE[0] // 3
+    crop = np.ascontiguousarray(vol[z0:z0 + FILTER_CROP[0],
+                                    :FILTER_CROP[1], :FILTER_CROP[2]])
+    mrc.write_mrc(fcrop, crop)
+    del vol
+    fout = os.path.join(tmp, "f_out.mrc")
+    launches = {}
+    for args in FILTER_ARGS:
+        blur_cuda.blur3.launches = blur_cuda.blur3_axis.launches = 0
+        dense_cuda.conv3d_dense.launches = 0
+        rc, wall, rep = _run_cli(f"-w 1 -in {fin} -out {fout} {args}".split(),
+                                 dev)
+        counts = {"blur3": blur_cuda.blur3.launches,
+                  "blur3_axis": blur_cuda.blur3_axis.launches,
+                  "conv3d_dense": dense_cuda.conv3d_dense.launches}
+        if args == "-gauss 21":
+            launches["blur3_axis"] = counts["blur3_axis"]
+            chk.check(counts["blur3_axis"] == 3 and counts["blur3"] == 0,
+                      f"-gauss 21 (halfwidth 55) took the per-axis mode: "
+                      f"{counts}")
+        if args == "-ggauss 2":
+            launches["conv3d_dense"] = counts["conv3d_dense"]
+            chk.check(counts["conv3d_dense"] == 2,
+                      f"-ggauss 2: the dense kernel, numerator and box "
+                      f"denominator: {counts}")
+        out = mrc.read_mrc(fout).data
+        outs = []
+        for d in (dev, "cpu"):
+            o = os.path.join(tmp, f"fc_{d}.mrc")
+            _run_cli(f"-w 1 -in {fcrop} -out {o} {args}".split(), d)
+            outs.append(mrc.read_mrc(o).data)
+        if args.split()[0] in FILTER_EXACT:
+            nd = int((outs[0] != outs[1]).sum())
+            ok, what = nd == 0, f"{nd} voxels differ"
+        else:
+            import torch
+            atol = (2.0 ** -22 * float(np.abs(crop).max()) / 0.02 ** 2
+                    if args.startswith("-log") else 1e-6)
+            ok, err, _ = close(torch.tensor(outs[0]), torch.tensor(outs[1]),
+                               1e-5, atol, absolute=args.startswith("-log"))
+            what = f"max|d|={err:.3g}"
+        chk.check(rc == 0 and out.shape == FILTER_SHAPE
+                  and bool(np.isfinite(out).all()) and ok,
+                  f"{args}: exit {rc}, output finite; crop card == CPU "
+                  f"({what})")
+        print(f"  {args}: wall {wall:.3f} s; {_spans(rep)}; launches "
+              f"{counts} [{card}]", flush=True)
+        del out
+    for f in (fin, fcrop, fout):
+        os.unlink(f)
+    return launches
+
+
+def phase_blob_mesh(chk, card, tmp, blob, dev="cuda"):
+    """8f: -blob … -mesh 4 on one card at BLOB_SHAPE: the list and the
+    image bit for bit 8b's."""
+    fin, fmask, stem, _, _, _ = blob
+    mesh_devs = [str(d) for row in _mesh().devices for d in row]
+    print(f"== phase 8f: -blob … -mesh {MESH_DEVICES} (blocks on "
+          f"{', '.join(mesh_devs)}) at "
+          f"{'x'.join(map(str, BLOB_SHAPE[::-1]))} against 8b [{card}]",
+          flush=True)
+    mstem = os.path.join(tmp, "blob_mesh")
+    rc, wall, rep, n_blur, peak, rss = _blob_run(chk, card, tmp, fin, fmask,
+                                                 mstem, dev, mesh=mesh_devs)
+    same = open(mstem + ".txt").read() == open(stem + ".txt").read()
+    chk.check(rc == 0 and same, f"-blob -mesh {MESH_DEVICES}: exit {rc}, "
+                                f"list == one device's: {same}")
+    _same_files(chk, f"-blob -mesh {MESH_DEVICES} image == one device's",
+                mstem + ".mrc", stem + ".mrc")
+    print(f"  wall {wall:.3f} s; {_spans(rep)}; blur3 launches {n_blur}; "
+          f"peak card memory {peak:.2f} GiB; host peak RSS {rss:.2f} GiB "
+          f"[{card}]", flush=True)
+    for f in (mstem + ".txt", mstem + ".mrc"):
+        os.unlink(f)
+
+
 def main() -> int:
     try:
         import torch  # noqa: F401
@@ -2429,7 +2924,7 @@ def main() -> int:
         if connect is not None:
             chk.run(phase_connect_normals, chk, card, tmp, connect[0])
         seg_in = chk.run(phase_extrema, chk, card, tmp)
-        chk.run(phase_watershed_host, chk, card, tmp, t_start)
+        chk.run(phase_watershed_host, chk, card, tmp)
         if seg_in is not None:
             chk.run(phase_watershed_device, chk, card, tmp, seg_in)
         thr = (connect if connect is not None else chk.run(
@@ -2438,6 +2933,13 @@ def main() -> int:
         if thr is not None:
             mesh_v = chk.run(phase_mesh_segment, chk, card, tmp, thr[0])
         chk.run(phase_intensity, chk, card, tmp)
+        filt_stats = chk.run(phase_filter_kernels, chk, card)
+        blob = chk.run(phase_blob, chk, card, tmp)
+        if blob is not None:
+            chk.run(phase_blob_tools, chk, card, tmp, blob)
+        filt_launches = chk.run(phase_filters, chk, card, tmp)
+        if blob is not None:
+            chk.run(phase_blob_mesh, chk, card, tmp, blob)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     if chk.failed:
         print(f"chip_smoke: {len(chk.failed)} check(s) failed:",
@@ -2449,13 +2951,18 @@ def main() -> int:
     # launches: the main path's run (phase 3) for the single-device
     # kernels, the -mesh run (5c) for the per-shard modes, the -connect
     # runs for the vote score with its vector: one device (6c) and, per
-    # block, -mesh (7d)
+    # block, -mesh (7d); 8e's -gauss 21 (halfwidth 55) for the blur's
+    # per-axis mode and its -ggauss 2 for the dense kernel
     launches = {**launches,
                 **{k: mesh_launches[k] for k in ("hessian_principal_block",
                                                  "tv_votes_prepadded")},
                 "sym3_score+v": connect[1]["sym3_score"],
-                "sym3_score_sharded+v": mesh_v}
-    stats = {**stats, **mesh_stats, **mesh_v_stats}
+                "sym3_score_sharded+v": mesh_v, **filt_launches}
+    stats = {**stats, **mesh_stats, **mesh_v_stats,
+             "blur3_axis": filt_stats["blur3_axis"],
+             "conv3d_dense": filt_stats["conv3d_dense"]}
+    stats["blur3"]["err"] = worst(stats["blur3"]["err"],
+                                  filt_stats["blur3"]["err"])
     errs = [small, main_errs, mesh_small]
     kernels = []
     for name, (src, replaces) in KERNELS.items():

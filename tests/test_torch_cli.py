@@ -182,8 +182,9 @@ def test_fraction_threshold_bit_identical(masked):
         assert got == want == np.sort(vals)[::-1][k]
 
 
-@pytest.mark.parametrize("flag", ["-gauss 2", "-dog 1 2", "-median 2",
-                                  "-blob minima b.txt 5 15 1.02",
+@pytest.mark.parametrize("flag", ["-doggxy 1 2 3", "-template-gauss 2 4",
+                                  "-distance-points p.txt",
+                                  "-blob-radial-intensity min b.txt o",
                                   "-save-progress-sharded p"])
 def test_cli_names_unhandled_flags(phantom, flag):
     argv = (f"-in {phantom}/in.mrc -w 1 -membrane minima 2.5 -tv 1.0 "

@@ -72,6 +72,76 @@ def _close_blur(got, want):
                                atol=1e-6 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("shape", [(12, 20, 33), (3, 70, 1030),
+                                   (70, 2, 41)])
+@pytest.mark.parametrize("hws", [(60, 60, 60), (80, 57, 3), (120, 30, 200)])
+def test_blur3_axis_mode_matches_twin(cuda, hws, shape):
+    """The per-axis mode (halfwidths no fused tile holds, taps reaching
+    far past the volume, a side of 2) against blur3_plain; blur3 takes
+    it by shape alone, and it counts its own launches."""
+    from visfd_tpu_torch.ops import blur_cuda
+    rng = _rng(8)
+    x = rng.normal(size=shape).astype(np.float32)
+    ks = [rng.uniform(0.1, 1.0, 2 * h + 1).astype(np.float32) for h in hws]
+    assert blur_cuda.smem_plan(*hws) is None
+    n0, a0 = blur_cuda.blur3.launches, blur_cuda.blur3_axis.launches
+    got = blur3(torch.tensor(x, device=cuda), ks)
+    torch.cuda.synchronize()
+    assert blur_cuda.blur3.launches == n0
+    assert blur_cuda.blur3_axis.launches == a0 + 3
+    _close_blur(got.cpu(), blur3_plain(torch.tensor(x),
+                                       [torch.tensor(k) for k in ks]))
+
+
+def test_blur3_axis_mode_equals_fused_kernel(cuda):
+    """At a halfwidth both take, the per-axis mode sums each voxel's
+    taps in the fused kernel's order: equal values."""
+    from visfd_tpu_torch.ops import blur_cuda
+    rng = _rng(9)
+    x = torch.tensor(rng.normal(size=(40, 50, 70)).astype(np.float32),
+                     device=cuda)
+    ks = [torch.tensor(rng.uniform(0.1, 1.0, 2 * h + 1).astype(np.float32),
+                       device=cuda) for h in (12, 20, 9)]
+    a = blur_cuda.blur3(x, ks)
+    b = blur_cuda.blur3_axis(x, ks)
+    np.testing.assert_allclose(b.cpu().numpy(), a.cpu().numpy(), rtol=1e-6,
+                               atol=1e-7 * float(a.abs().max()))
+
+
+@pytest.mark.parametrize("hs", [(1, 1, 1), (3, 2, 4), (5, 5, 5), (0, 6, 2)])
+def test_conv3d_dense_kernel_matches_twin(cuda, hs):
+    """The dense correlation kernel against its shift-sum twin (an
+    asymmetric kernel, sides that differ, NaN in the input), and a
+    haloed block's interior equal to the whole volume's bit for bit."""
+    from visfd_tpu_torch.ops import dense_cuda as DC
+    rng = _rng(10)
+    hx, hy, hz = hs
+    x = rng.normal(size=(9, 21, 45)).astype(np.float32)
+    x[4, 10, 20] = np.nan
+    k = rng.normal(size=(2 * hz + 1, 2 * hy + 1, 2 * hx + 1)).astype(
+        np.float32)
+    n0 = DC.conv3d_dense.launches
+    got = DC.conv3d_dense(torch.tensor(x, device=cuda), k)
+    torch.cuda.synchronize()
+    assert DC.conv3d_dense.launches == n0 + 1
+    want = DC.conv3d_dense_plain(torch.tensor(x), torch.tensor(k)).numpy()
+    g = got.cpu().numpy()
+    assert np.array_equal(np.isnan(g), np.isnan(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(g[fin], want[fin], rtol=1e-5,
+                               atol=1e-6 * np.abs(want[fin]).max())
+    # a block (planes 3..6, rows 5..14) read with its halo
+    z0, z1, y0, y1 = 3, 7, 5, 15
+    sub = np.zeros((z1 - z0 + 2 * hz, y1 - y0 + 2 * hy, 45), np.float32)
+    lo_z, lo_y = max(0, z0 - hz), max(0, y0 - hy)
+    hi_z, hi_y = min(9, z1 + hz), min(21, y1 + hy)
+    sub[lo_z - (z0 - hz):hi_z - (z0 - hz), lo_y - (y0 - hy):hi_y - (y0 - hy)] \
+        = x[lo_z:hi_z, lo_y:hi_y]
+    blk = DC.conv3d_dense(torch.tensor(sub, device=cuda), k).cpu().numpy()
+    inner = blk[hz:hz + z1 - z0, hy:hy + y1 - y0]
+    assert np.array_equal(inner, g[z0:z1, y0:y1], equal_nan=True)
+
+
 @pytest.mark.parametrize("field", ["normal", "top5"])
 @pytest.mark.parametrize("hw", [4, 5])
 def test_blur3_cuda_kernel_matches_twin(cuda, hw, field):

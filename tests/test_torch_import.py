@@ -40,6 +40,8 @@ SLICE_MODULES = [
     "visfd_tpu_torch.parallel.sharded_features",
     "visfd_tpu_torch.parallel.blocks",
     "visfd_tpu_torch.ops.threshold", "visfd_tpu_torch.ops.draw",
+    "visfd_tpu_torch.features.blob", "visfd_tpu_torch.features.supervised",
+    "visfd_tpu_torch.ops.morphology", "visfd_tpu_torch.ops.dense_cuda",
     # the card's script and tests, run where jax is absent
     "chip_smoke", "tests.test_torch_cuda_kernels",
 ]

@@ -43,6 +43,10 @@ _SIGNATURES = {
     # in, out, taps (kz | ky | kx), hx, hy, hz, nz, ny, nx, rows, smem,
     # stream
     "visfd_blur3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # in, out, taps, hw, nz, ny, nx, axis (0: z, 1: y, 2: x), stream
+    "visfd_blur_axis": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # in, out, flipped taps (kz, ky, kx), hx, hy, hz, nz, ny, nx, stream
+    "visfd_conv3d": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # blur, out, nz, ny, nx, sigma^2, decreasing, formula, want_v, stream
     "visfd_hessian_principal": [_P, _P, _I, _I, _I, _F, _I, _I, _I, _P],
     # block and its plane and row strides; the z halo planes below and

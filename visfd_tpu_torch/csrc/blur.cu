@@ -31,6 +31,20 @@
 // planes in shared memory, z summed when the ring holds z - hz .. z +
 // hz.
 //
+// Per-axis mode, for halfwidths whose fused tile does not fit in shared
+// memory (ops/blur_cuda.smem_plan returns None; the JAX package sends
+// kernels longer than 61 taps to XLA's conv1d, visfd_tpu/ops/conv.py:96):
+// one launch per axis, x then y then z, each a 1-D convolution with a
+// runtime halfwidth of any size.  A block owns a segment of one line
+// (x) or of 32 neighbouring lines (y, z) and walks the sources its
+// segment reaches, [s0 - h, s0 + seg + h), in chunks staged in shared
+// memory (zeros outside the volume); each output adds, per chunk, the
+// taps whose sources it holds, so every output sums its 2h+1 taps in
+// ascending order of the source, padded samples included as zeros: the
+// fused kernel's sums, bit for bit, and a -mesh block's interior gets
+// the single-device bits.  Bound: operations, 2(2h+1) per voxel and
+// axis (at h = 60, 726 a voxel against 8 bytes moved per pass).
+//
 // Invariants.  Every output voxel sums, per axis, all 2h+1 taps in
 // ascending order of the source (x, then y, then z; the TPU kernel
 // takes y, then x, then z, and the twin z, y, x), padded samples
@@ -294,4 +308,123 @@ extern "C" int visfd_blur3(const void* in, void* out, const void* taps,
   }
 #undef VISFD_BLUR_CASE
   return launch<0>(in, out, taps, hx, hy, hz, nz, ny, nx, by, smem, s);
+}
+
+// ---------------------------------------------------------------------------
+// per-axis mode
+
+namespace {
+
+constexpr int kAxSegX = 1024;   // x: outputs of a line per block
+constexpr int kAxChunkX = 4096;  // x: sources staged per chunk
+constexpr int kAxSegS = 64;     // y, z: outputs of each line per block
+constexpr int kAxChunkS = 128;  // y, z: sources staged per chunk and line
+constexpr int kAxRows = 8;      // y, z: rows of threads (32 lines wide)
+
+// along x: line = blockIdx.x (a (z, y) row), outputs s0 .. s0 + 1023
+__global__ void __launch_bounds__(256)
+    blur_axis_x_kernel(const float* __restrict__ in, float* __restrict__ out,
+                       const float* __restrict__ taps, int h, int nx) {
+  __shared__ float s[kAxChunkX];
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * nx;
+  const int s0 = blockIdx.y * kAxSegX;
+  const int lo = s0 - h;                             // first source
+  const int hi = min(s0 + kAxSegX, nx) - 1 + h;      // last source
+  float acc[kAxSegX / 256];
+#pragma unroll
+  for (int q = 0; q < kAxSegX / 256; ++q) acc[q] = 0.0f;
+  for (int c0 = lo; c0 <= hi; c0 += kAxChunkX) {
+    const int c1 = min(c0 + kAxChunkX, hi + 1);      // chunk [c0, c1)
+    __syncthreads();  // the last chunk's readers are done
+    for (int j = c0 + threadIdx.x; j < c1; j += 256) {
+      s[j - c0] = j >= 0 && j < nx ? in[base + j] : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < kAxSegX / 256; ++q) {
+      const int i = s0 + threadIdx.x + 256 * q;
+      const int a = max(c0, i - h), b = min(c1, i + h + 1);
+      float v = acc[q];
+      for (int j = a; j < b; ++j) v = fmaf(__ldg(taps + h + i - j), s[j - c0], v);
+      acc[q] = v;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kAxSegX / 256; ++q) {
+    const int i = s0 + threadIdx.x + 256 * q;
+    if (i < nx) out[base + i] = acc[q];
+  }
+}
+
+// along y or z of a (outer, n, inner) layout: lines inner0 .. inner0 + 31
+// of outer index blockIdx.z, outputs s0 .. s0 + 63 along the axis
+__global__ void __launch_bounds__(256)
+    blur_axis_strided_kernel(const float* __restrict__ in,
+                             float* __restrict__ out,
+                             const float* __restrict__ taps, int h, int n,
+                             int64_t inner) {
+  __shared__ float s[kAxChunkS * 32];
+  const int lx = threadIdx.x, ly = threadIdx.y;
+  const int64_t line = static_cast<int64_t>(blockIdx.x) * 32 + lx;
+  const bool live = line < inner;
+  const int64_t base = static_cast<int64_t>(blockIdx.z) * n * inner + line;
+  const int s0 = blockIdx.y * kAxSegS;
+  const int lo = s0 - h;
+  const int hi = min(s0 + kAxSegS, n) - 1 + h;
+  float acc[kAxSegS / kAxRows];
+#pragma unroll
+  for (int q = 0; q < kAxSegS / kAxRows; ++q) acc[q] = 0.0f;
+  for (int c0 = lo; c0 <= hi; c0 += kAxChunkS) {
+    const int c1 = min(c0 + kAxChunkS, hi + 1);
+    __syncthreads();
+    for (int j = c0 + ly; j < c1; j += kAxRows) {
+      s[(j - c0) * 32 + lx] =
+          live && j >= 0 && j < n ? in[base + static_cast<int64_t>(j) * inner]
+                                  : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < kAxSegS / kAxRows; ++q) {
+      const int i = s0 + ly + kAxRows * q;
+      const int a = max(c0, i - h), b = min(c1, i + h + 1);
+      float v = acc[q];
+      for (int j = a; j < b; ++j) {
+        v = fmaf(__ldg(taps + h + i - j), s[(j - c0) * 32 + lx], v);
+      }
+      acc[q] = v;
+    }
+  }
+  if (!live) return;
+#pragma unroll
+  for (int q = 0; q < kAxSegS / kAxRows; ++q) {
+    const int i = s0 + ly + kAxRows * q;
+    if (i < n) out[base + static_cast<int64_t>(i) * inner] = acc[q];
+  }
+}
+
+}  // namespace
+
+// One 1-D convolution along ``axis`` (0: z, 1: y, 2: x) of a (nz, ny, nx)
+// volume; taps of length 2h+1, g[i] = sum_j taps[h + i - j] f[j].
+extern "C" int visfd_blur_axis(const void* in, void* out, const void* taps,
+                               int h, int nz, int ny, int nx, int axis,
+                               void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* src = static_cast<const float*>(in);
+  float* dst = static_cast<float*>(out);
+  const float* k = static_cast<const float*>(taps);
+  if (axis == 2) {
+    const dim3 grid(nz * ny, (nx + kAxSegX - 1) / kAxSegX);
+    blur_axis_x_kernel<<<grid, 256, 0, st>>>(src, dst, k, h, nx);
+  } else {
+    const int n = axis == 1 ? ny : nz;
+    const int outer = axis == 1 ? nz : 1;
+    const int64_t inner = axis == 1 ? static_cast<int64_t>(nx)
+                                    : static_cast<int64_t>(ny) * nx;
+    const dim3 grid(static_cast<unsigned>((inner + 31) / 32),
+                    (n + kAxSegS - 1) / kAxSegS, outer);
+    blur_axis_strided_kernel<<<grid, dim3(32, kAxRows), 0, st>>>(
+        src, dst, k, h, n, inner);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

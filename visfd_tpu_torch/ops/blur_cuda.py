@@ -1,6 +1,9 @@
 """Separable 3-D convolution: the CUDA kernel (``csrc/blur.cu``), its
 plain PyTorch twin, and the wrapper that picks one by the tensor's
-device.
+device.  Halfwidths whose fused tile does not fit in shared memory take
+the kernel's per-axis mode (``blur3_axis``: one launch per axis), as
+the JAX package sends kernels longer than 61 taps to XLA's conv1d
+(``visfd_tpu/ops/conv.py:96-103``).
 
 Port of ``visfd_tpu/ops/blur_pallas.py`` (``blur3_pallas``).  Semantics
 of ``ops.conv._sep3``: true convolution g[i] = sum_j h[j] f[i-j] along
@@ -98,8 +101,7 @@ def blur3(x: torch.Tensor, kernels_xyz: Sequence) -> torch.Tensor:
     hx, hy, hz = (k.shape[0] // 2 for k in ks)
     plan = smem_plan(hx, hy, hz)
     if plan is None:
-        raise ValueError(f"blur3: halfwidths (x, y, z) = {(hx, hy, hz)} "
-                         f"exceed the kernel's shared memory")
+        return blur3_axis(x, ks)
     if x.shape[1] * x.shape[2] >= 2 ** 31:
         raise ValueError(f"blur3: a plane of {tuple(x.shape[1:])} voxels "
                          f"exceeds the kernel's 32-bit plane offsets")
@@ -118,3 +120,39 @@ def blur3(x: torch.Tensor, kernels_xyz: Sequence) -> torch.Tensor:
 
 
 blur3.launches = 0
+
+
+def blur3_axis(x: torch.Tensor, kernels_xyz: Sequence) -> torch.Tensor:
+    """``blur3`` of a (Z, Y, X) float32 CUDA tensor by the kernel's
+    per-axis mode: x, then y, then z, one launch each, any halfwidth
+    (each output sums its taps in the fused kernel's order)."""
+    if x.device.type != "cuda" or x.dtype != torch.float32 or x.ndim != 3:
+        raise ValueError(f"blur3_axis takes a (Z, Y, X) float32 CUDA "
+                         f"tensor, got {x.dtype} {tuple(x.shape)} on "
+                         f"{x.device}")
+    nz, ny, nx = x.shape
+    if max(nz * ny, nx, ny, nz) >= 2 ** 31 or nz > 65535 or \
+            -(-ny * nx // 32) >= 2 ** 31:
+        raise ValueError(f"blur3_axis: {tuple(x.shape)} exceeds the "
+                         f"kernel's grid")
+    src = x.contiguous()
+    if src.numel() == 0:
+        return torch.empty_like(src)
+    ks = [torch.as_tensor(k, dtype=torch.float32, device=x.device)
+          .contiguous() for k in kernels_xyz]
+    tmp = torch.empty_like(src)
+    out = torch.empty_like(src)
+    lib = cb.library()
+    # x: src -> tmp, y: tmp -> out, z: out -> tmp
+    with torch.cuda.device(x.device):
+        for axis, (a, b) in ((2, (src, tmp)), (1, (tmp, out)),
+                             (0, (out, tmp))):
+            k = ks[2 - axis]
+            cb.check(lib.visfd_blur_axis(
+                a.data_ptr(), b.data_ptr(), k.data_ptr(), k.shape[0] // 2,
+                nz, ny, nx, axis, cb.stream_of(x)), "visfd_blur_axis")
+            blur3_axis.launches += 1
+    return tmp
+
+
+blur3_axis.launches = 0

@@ -1,12 +1,17 @@
-"""Separable 3-D convolution over (Z, Y, X) voxel grids, with the
-reference's mask and normalisation semantics.
+"""Separable and dense 3-D convolution over (Z, Y, X) voxel grids, with
+the reference's mask and normalisation semantics.
 
-Port of ``visfd_tpu/ops/conv.py`` (the separable part).  The masked
+Port of ``visfd_tpu/ops/conv.py``.  The masked
 normalised output is ``blur(f*m) / blur(m)`` and the unmasked one
 ``blur(f) / blur(1)``, where ``blur(1)`` factorises into a per-axis
 outer product (``filter3d.hpp:673-683, 1006-1040``).  Every 3-D blur
 goes through ``blur_cuda.blur3``: the CUDA kernel for a tensor on the
 card, its shift-sum twin on the CPU.
+
+Every dense convolution goes through ``dense_cuda.conv3d_dense``: the
+CUDA kernel on the card (no cuDNN, so no TF32), its shift-sum twin on
+the CPU; a ``ShardedVolume`` is convolved block by block, each block
+read with a halo as deep as the kernel.
 
 Convolution orientation matches the reference: g[i] = sum_j h[j]*f[i-j].
 """
@@ -17,9 +22,14 @@ from typing import Optional, Sequence
 
 import torch
 
-from visfd_tpu_torch.ops.blur_cuda import blur3, conv1d_axis
+import numpy as np
 
-__all__ = ["conv1d_axis", "separable_conv3d"]
+from visfd_tpu_torch.ops.blur_cuda import blur3, conv1d_axis
+from visfd_tpu_torch.ops.dense_cuda import conv3d_dense
+from visfd_tpu_torch.parallel.halo import haloed_block
+from visfd_tpu_torch.parallel.mesh import ShardedVolume, bmap
+
+__all__ = ["conv1d_axis", "dense_conv3d", "separable_conv3d"]
 
 
 def _ones_denom_1d(kernel: torch.Tensor, n: int) -> torch.Tensor:
@@ -60,3 +70,40 @@ def separable_conv3d(
     den = blur3(m, (kx, ky, kz))
     ok = den > 0
     return torch.where(ok, out / torch.where(ok, den, 1.0), out)
+
+
+def _correlate(v, kflip: torch.Tensor):
+    """``conv3d_dense`` of a tensor, or of each block of a ShardedVolume
+    read with a halo of the kernel's z and y halfwidths (zeros beyond
+    the volume), its interior kept."""
+    if not isinstance(v, ShardedVolume):
+        return conv3d_dense(v, kflip.to(v.device))
+    hz, hy = kflip.shape[0] // 2, kflip.shape[1] // 2
+    bz, by = v.block_shape
+
+    def cell(iz, iy, b):
+        w = haloed_block(v, iz, iy, hz, 0.0, halo_y=hy)
+        return conv3d_dense(w, kflip.to(b.device))[
+            hz:hz + bz, hy:hy + by].contiguous()
+    return v.with_blocks(cell)
+
+
+def dense_conv3d(x, kernel_zyx, mask=None, normalize: bool = True):
+    """Dense (non-separable) 3-D convolution with the mask/normalise
+    semantics of ``Filter3D::Apply`` (``filter3d.hpp:150-458``):
+    g = conv(f*m), denominator = conv(m) (or conv(box) without a mask).
+    ``x`` (and ``mask``) may be ShardedVolumes."""
+    k = torch.as_tensor(np.asarray(kernel_zyx, dtype=np.float32))
+    # true convolution: flip all spatial axes, then correlate
+    kf = k.flip(0, 1, 2).contiguous()
+    src = x if mask is None else bmap(torch.mul, x, mask)
+    out = _correlate(src, kf)
+    if not normalize:
+        return out
+    den = _correlate(mask if mask is not None else bmap(torch.ones_like, x),
+                     kf)
+
+    def divide(o, d):
+        ok = d > 0
+        return torch.where(ok, o / torch.where(ok, d, 1.0), o)
+    return bmap(divide, out, den)

@@ -116,3 +116,62 @@ def cells(*vols):
     """(iz, iy, blocks...) over several volumes of one partition."""
     for iz, iy, b in vols[0].cells():
         yield (iz, iy, b) + tuple(v.blocks[iz][iy] for v in vols[1:])
+
+
+def iter_windows(vols, fills, halo, slab_voxels: Optional[int] = None):
+    """Walk the z slabs of the blocks of the (Z, Y, X) volumes ``vols``
+    (ShardedVolumes of one partition, or tensors: the one block of a
+    1 x 1 grid; None stays None).  Yields (iz, iy, z0, y0, windows):
+    the slab's first global plane and row, and per volume the slab's
+    planes and the block's rows with ``halo`` = (hz, hy, hx) neighbours
+    on each side (from the neighbouring blocks; ``fills[i]`` beyond the
+    volume, x included), led by a boolean window that is True inside
+    the volume (broadcast from its three axes).  A slab holds at most
+    ``slab_voxels`` voxels of its block (one plane at least)."""
+    from visfd_tpu_torch.parallel.halo import window
+    from visfd_tpu_torch.parallel.mesh import as_blocks
+    hz, hy, hx = halo
+    bvs = [None if v is None else as_blocks(v) for v in vols]
+    v0 = bvs[0]
+    bz, by = v0.block_shape
+    nz, ny, nx = v0.shape[-3:]
+    planes = bz if slab_voxels is None else max(
+        1, min(bz, slab_voxels // max(1, by * nx)))
+    for iz, iy, b in v0.cells():
+        for z0 in range(0, bz, planes):
+            z1 = min(bz, z0 + planes)
+            gz0, gy0 = iz * bz + z0, iy * by
+            zs = torch.arange(gz0 - hz, gz0 + (z1 - z0) + hz, device=b.device)
+            ys = torch.arange(gy0 - hy, gy0 + by + hy, device=b.device)
+            xs = torch.arange(-hx, nx + hx, device=b.device)
+            wins = [((zs >= 0) & (zs < nz))[:, None, None]
+                    & ((ys >= 0) & (ys < ny))[None, :, None]
+                    & ((xs >= 0) & (xs < nx))[None, None, :]]
+            for v, fill in zip(bvs, fills):
+                if v is None:
+                    wins.append(None)
+                    continue
+                w = window(v, gz0 - hz, gz0 + (z1 - z0) + hz, gy0 - hy,
+                           gy0 + by + hy, fill, b.device)
+                wins.append(torch.nn.functional.pad(w, (hx, hx), value=fill)
+                            if hx else w)
+            yield iz, iy, gz0, gy0, wins
+
+
+def map_windows(fn, vols, fills, halo, slab_voxels: Optional[int] = None):
+    """``fn(*windows)`` over each z slab of each block (``iter_windows``)
+    returns the slab's output, (slab planes, block rows, X); the result
+    is in the form of the first volume.  Every output voxel sees the
+    same neighbours however the volume is split, so a stencil that
+    computes each voxel from its own window alone gives the same bits on
+    one device and on the mesh."""
+    from visfd_tpu_torch.parallel.mesh import as_blocks, from_blocks, unwrap
+    v0 = as_blocks(vols[0])
+    parts = {}
+    for iz, iy, _, _, wins in iter_windows(vols, fills, halo, slab_voxels):
+        parts.setdefault((iz, iy), []).append(fn(*wins))
+    nz_m, ny_m = v0.mesh.shape
+    blocks = [[torch.cat(parts[iz, iy]) if len(parts[iz, iy]) > 1
+               else parts[iz, iy][0] for iy in range(ny_m)]
+              for iz in range(nz_m)]
+    return unwrap(from_blocks(blocks, v0.mesh), vols[0])

@@ -73,18 +73,30 @@ def halo_pad_2d(vol: ShardedVolume, halo_z: int,
 
 
 def haloed_block(vol: ShardedVolume, iz: int, iy: int, halo: int,
-                 fill=0) -> torch.Tensor:
+                 fill=0, halo_y=None) -> torch.Tensor:
     """Block (iz, iy) of a plain (Z, Y, X) volume with ``halo`` rows of
-    its neighbours on each side along z and y (from as many blocks away
-    as ``halo`` reaches) and ``fill`` beyond the volume: one new tensor
-    on the block's device, built block by block so a stage that walks
-    the blocks holds one haloed copy at a time."""
-    b = vol.blocks[iz][iy]
+    its neighbours on each side along z (``halo_y``, default ``halo``,
+    along y; from as many blocks away as the halo reaches) and ``fill``
+    beyond the volume: one new tensor on the block's device, built block
+    by block so a stage that walks the blocks holds one haloed copy at a
+    time."""
+    bz, by = vol.block_shape
+    hy = halo if halo_y is None else halo_y
+    return window(vol, iz * bz - halo, (iz + 1) * bz + halo,
+                  iy * by - hy, (iy + 1) * by + hy, fill,
+                  vol.blocks[iz][iy].device)
+
+
+def window(vol: ShardedVolume, z_lo: int, z_hi: int, y_lo: int, y_hi: int,
+           fill, device) -> torch.Tensor:
+    """Planes [z_lo, z_hi) and rows [y_lo, y_hi) (global; any of them may
+    lie beyond the volume, which gives ``fill``), all of X, of a plain
+    (Z, Y, X) volume, gathered from its blocks onto ``device``."""
     bz, by = vol.block_shape
     nz_m, ny_m = vol.mesh.shape
-    out = b.new_full((bz + 2 * halo, by + 2 * halo, b.shape[-1]), fill)
-    z_lo, y_lo = iz * bz - halo, iy * by - halo
-    z_hi, y_hi = z_lo + bz + 2 * halo, y_lo + by + 2 * halo
+    b = vol.blocks[0][0]
+    out = torch.full((z_hi - z_lo, y_hi - y_lo, b.shape[-1]), fill,
+                     dtype=b.dtype, device=device)
     for jz in range(max(0, z_lo // bz), min(nz_m, -(-z_hi // bz))):
         gz0, gz1 = max(jz * bz, z_lo), min(jz * bz + bz, z_hi)
         for jy in range(max(0, y_lo // by), min(ny_m, -(-y_hi // by))):

@@ -1,7 +1,6 @@
-"""Mesh-sharded plateau extrema and device watershed.
+"""Mesh-sharded blob ladder, plateau extrema and device watershed.
 
-Port of the segmentation part of ``visfd_tpu/parallel/sharded_features.py``
-for one process: the volume is a ``ShardedVolume`` of (z, y) blocks
+Port of ``visfd_tpu/parallel/sharded_features.py`` for one process: the volume is a ``ShardedVolume`` of (z, y) blocks
 (``parallel.mesh``), and each block runs the single-device step on its
 own device, reading its neighbours through a 1-voxel halo
 (``parallel.halo.halo1``).  Flat indices are global, in the
@@ -15,7 +14,12 @@ result equals the single-device one:
   the blocks (halo exchange each round, block-local pointer jumps, the
   "changed" flag the OR over the blocks);
 * ``sharded_minimax`` and ``propagate_watershed_sharded``: the
-  blockwise loops of ``segment.propagate`` over the mesh.
+  blockwise loops of ``segment.propagate`` over the mesh;
+* ``sharded_blob_dog``: ``features.blob.blob_dog`` on the blocks: each
+  scale's LoG by ``parallel.sharded.separable_conv3d_sharded`` (the
+  JAX package's ``make_sharded_log_fn``), the 80-neighbour test
+  through 1-voxel halos (its ``_build_sharded_extremum``), the
+  candidates compacted per block and merged into raster order.
 
 A volume that the mesh does not divide is not padded (the JAX package
 pads it): the CLI runs it on one device, with the same output.
@@ -24,7 +28,9 @@ pads it): the CLI runs it on one device, with the same output.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from visfd_tpu_torch.features import blob as B
 from visfd_tpu_torch.parallel.gather import to_host_np
 from visfd_tpu_torch.parallel.mesh import Mesh, ShardedVolume, place, shard
 from visfd_tpu_torch.segment import extrema as E
@@ -34,6 +40,8 @@ from visfd_tpu_torch.segment import propagate as P
 def _sharded(a, mesh: Mesh):
     if a is None or isinstance(a, ShardedVolume):
         return a
+    if isinstance(a, torch.Tensor):
+        return shard(a, mesh)
     return shard(np.asarray(a, np.float32), mesh)
 
 
@@ -79,3 +87,11 @@ def propagate_watershed_sharded(
         connectivity=connectivity, show_boundaries=show_boundaries,
         label_boundary=label_boundary, label_undefined=label_undefined,
         report=report)
+
+
+def sharded_blob_dog(x, sigmas, mesh: Mesh, mask=None, **kw):
+    """``features.blob.blob_dog`` of a volume split over ``mesh`` (``x``
+    and ``mask``: ShardedVolumes, or host arrays or tensors to split):
+    the same (minima, maxima) lists as one device, bit for bit."""
+    return B.blob_dog(_sharded(x, mesh), sigmas, mask=_sharded(mask, mesh),
+                      **kw)

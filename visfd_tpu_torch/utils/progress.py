@@ -66,3 +66,21 @@ def stage(name: str, report: Report):
         dt = time.perf_counter() - t0
         report.timings[name] = dt
         report.line(f"---- {name}: {dt:.3f}s ----")
+
+
+@contextlib.contextmanager
+def span(name: str, report):
+    """Add the block's wall time (the card synchronised at its end) to
+    ``report.timings[name]``, silently, so a loop's parts add up; a
+    ``report`` that is not a ``Report`` (None, a stream) times nothing."""
+    if not isinstance(report, Report):
+        yield
+        return
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        report.timings[name] = (report.timings.get(name, 0.0)
+                                + time.perf_counter() - t0)
