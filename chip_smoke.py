@@ -17,9 +17,10 @@ Phases:
    CUDA events; the voting kernel on the field the main path votes on
    (the ``-tv-best 0.05`` share of a phantom's planar score, with its
    occupancy at three granularities), on a 5%-occupied "planes" field
-   and on a 74%-occupied one; the vote score with its principal vector
-   (the ``-connect`` path) timed with ``torch.linalg.eigh`` on a quarter
-   of the planes; then (2b) every kernel option on small
+   and on a 74%-occupied one; the vote score without and with its
+   principal vector (the ``-connect`` path), with
+   ``torch.linalg.eigvalsh`` / ``eigh`` timed on an eighth of the
+   planes; then (2b) every kernel option on small
    volumes whose sides differ and are not multiples of a tile, the
    per-shard Hessian entry on a strided view of a block with its halo
    slabs among them;
@@ -114,18 +115,39 @@ Phases:
    ``-ggauss``, ``-dog``, ``-dogg``, ``-log``, ``-fluct``, ``-median 2``,
    ``-erode 2`` and ``-open 2`` at 512 x 512 x 256, each card against
    CPU on a crop; (8f) ``-blob … -mesh 4`` on one card against 8b, bit
-   for bit.
+   for bit;
+9. the experimental handlers, the 2-D filters and the nine tools: (9a)
+   the dense kernel's (1, 21, 21) mode (``-doggxy 2 4 2``'s 2-D pass) at
+   1024 x 1024 x 512 and its 31^3 mode (``-template-gauss 3 6``'s
+   amplitude) on (16, 512, 512) against their twins, timed beside cuDNN
+   ``conv3d``; ``-template-gauss 3 6`` and ``-doggxy 2 4 2`` at ``-w 1``
+   on 8b's input, with and without 8b's mask (launches, walls, spans,
+   peak card memory), with ``-mesh 4`` bit for bit one device, and a
+   (24, 48, 64) crop card against CPU; (9b) on a seeded 512 x 512 x 256
+   phantom, ``-distance-points`` with 1000 points (8 planes bit for bit
+   the CPU's, with and without ``-mask``), ``-distance-to-voxels``
+   (distances equal the CPU's), ``-random-spheres`` (300 of diameter
+   12), and ``-blob-radial-intensity min`` over 500 of 8b's blobs; (9c)
+   the nine tools on 8b's and 9a's files (``combine_mrc``,
+   ``sum_voxels``, ``pval_mrc`` on the point image of 8b's blobs,
+   ``crop_mrc``, ``convert_to_float``, ``print_mrc_stats``,
+   ``histogram_mrc``, ``voxelize_mesh`` on an icosphere,
+   ``draw_filter_1d``), walls, and the three device tools card against
+   CPU on a (64, 128, 128) crop.
 
 A failed check is reported where it happens and the later phases still
 run; the script then exits non-zero without a result line.  On success
 the second-to-last line is a JSON summary of the kernels (each with its
 time, its plain twin's, the least time the card could take for the same
 work, where one PyTorch call computes the same function that call's
-time, its largest absolute and relative error over the checks, and its
+time, with ``library_shape`` the (Z, Y, X) it was timed on where that
+is not the kernel's own input (null elsewhere), its largest absolute
+and relative error over the checks, and its
 launches in one run: the vote score with its vector has one entry for
 one device, from 6c, and one per block, from 7d's ``-mesh`` run; the
-blur's per-axis mode counts 8e's ``-gauss 21`` run and the dense kernel
-8e's ``-ggauss`` run) and
+blur's per-axis mode counts 8e's ``-gauss 21`` run, the dense kernel
+8e's ``-ggauss`` run, its (1, Ky, Kx) mode 9a's ``-doggxy`` run and its
+31^3 mode 9a's ``-template-gauss`` run) and
 the last line ``{"ok": true, "device": {...}}``.  TF32
 is turned off for cuDNN and matmuls (the twins use neither; the
 library yardsticks are timed in float32).
@@ -270,13 +292,18 @@ class Checks:
 
     def run(self, phase, *args):
         """Run a phase; an exception fails it (traceback printed) and
-        returns None, so the later phases still report."""
+        returns None, so the later phases still report.  Prints the
+        phase's seconds."""
+        t0 = time.perf_counter()
         try:
             return phase(*args)
         except Exception:  # reported, and decides the exit code
             traceback.print_exc()
             self.check(False, f"{phase.__name__} raised")
             return None
+        finally:
+            print(f"  ({phase.__name__}: {time.perf_counter() - t0:.1f} s)",
+                  flush=True)
 
 
 class Err(tuple):
@@ -637,12 +664,13 @@ def phase_kernels(chk, card, shape=MAIN_SHAPE, dev="cuda"):
     nvox = int(np.prod(shape))
 
     def record(name, err, ms=None, plain_ms=None, bound=None,
-               library_ms=None):
+               library_ms=None, library_shape=None):
         s = stats.setdefault(name, {"err": Err()})
         s["err"] = worst(s["err"], err)
         if ms is not None:
             s.update(ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
-                     bound_by=bound[1], library_ms=library_ms)
+                     bound_by=bound[1], library_ms=library_ms,
+                     library_shape=library_shape)
 
     # --- blur: unmasked and masked, hw 4 and 5 -------------------------
     x = torch.randn(shape, generator=gen, device=dev)
@@ -783,35 +811,30 @@ def phase_kernels(chk, card, shape=MAIN_SHAPE, dev="cuda"):
     pms = cuda_ms(lambda: EC.sym3_score_plain(vote, True, "stick", False),
                   3)
     ms_v = cuda_ms(lambda: EC.sym3_score(vote, True, "stick", True), 20)
-    b = bound_ms(40 * nvox, (SYM3_OPS + SCORE_OPS["stick"] + EIGVEC_OPS)
-                 * nvox)
-    print(f"  sym3_score stick+v: kernel {ms_v:.3f} ms, bound {b[0]:.3f} ms "
-          f"({b[1]}), {b[0] / ms_v:.0%} of it [{card}]", flush=True)
-    del raw, s_k, v_k
-
-    # eigvalsh takes about a minute at this size
-    lms = library_ms(torch.linalg.eigvalsh, vote)
-    b = bound_ms(28 * nvox, (SYM3_OPS + SCORE_OPS["stick"]) * nvox)
-    record("sym3_score", 0.0, ms, pms, b, lms)
-    print(f"  sym3_score stick: kernel {ms:.3f} ms, plain {pms:.3f} ms "
-          f"(on the card), eigvalsh {lms:.3f} ms, bound {b[0]:.3f} ms "
-          f"({b[1]}) [{card}]", flush=True)
-    # with the vector, on the first quarter of the planes (eigh takes
-    # about two and a half minutes on all of them): kernel, twin, eigh
-    # and bound (24 B read, 16 B written a voxel) on those voxels
-    slab = vote[:, :vote.shape[1] // 4].contiguous()
-    nv_s = slab[0].numel()
-    ms_v = cuda_ms(lambda: EC.sym3_score(slab, True, "stick", True), 20)
-    pms_v = cuda_ms(lambda: EC.sym3_score_plain(slab, True, "stick", True),
+    pms_v = cuda_ms(lambda: EC.sym3_score_plain(vote, True, "stick", True),
                     3)
+    b_v = bound_ms(40 * nvox, (SYM3_OPS + SCORE_OPS["stick"] + EIGVEC_OPS)
+                   * nvox)
+    print(f"  sym3_score stick+v: kernel {ms_v:.3f} ms, plain {pms_v:.3f} ms "
+          f"(on the card), bound {b_v[0]:.3f} ms ({b_v[1]}), "
+          f"{b_v[0] / ms_v:.0%} of it [{card}]", flush=True)
+    del raw, s_k, v_k
+    b = bound_ms(28 * nvox, (SYM3_OPS + SCORE_OPS["stick"]) * nvox)
+    print(f"  sym3_score stick: kernel {ms:.3f} ms, plain {pms:.3f} ms "
+          f"(on the card), bound {b[0]:.3f} ms ({b[1]}), {b[0] / ms:.0%} of "
+          f"it [{card}]", flush=True)
+
+    # MAGMA's eigvalsh / eigh on the first eighth of the planes (on all of
+    # them eigvalsh takes 45-72 s and eigh about two and a half minutes);
+    # the kernels line gives that shape beside library_ms
+    slab = vote[:, :vote.shape[1] // 8].contiguous()
+    lms = library_ms(torch.linalg.eigvalsh, slab)
     lms_v = library_ms(torch.linalg.eigh, slab)
-    b = bound_ms(40 * nv_s, (SYM3_OPS + SCORE_OPS["stick"] + EIGVEC_OPS)
-                 * nv_s)
-    record("sym3_score+v", 0.0, ms_v, pms_v, b, lms_v)
-    print(f"  sym3_score stick+v on {tuple(slab.shape[1:])}: kernel "
-          f"{ms_v:.3f} ms, plain {pms_v:.3f} ms (on the card), eigh "
-          f"{lms_v:.3f} ms, bound {b[0]:.3f} ms ({b[1]}), {b[0] / ms_v:.0%} "
-          f"of it [{card}]", flush=True)
+    lshape = list(slab.shape[1:])
+    record("sym3_score", 0.0, ms, pms, b, lms, lshape)
+    record("sym3_score+v", 0.0, ms_v, pms_v, b_v, lms_v, lshape)
+    print(f"  on {tuple(lshape)}: eigvalsh {lms:.3f} ms, eigh {lms_v:.3f} ms "
+          f"[{card}]", flush=True)
     return stats
 
 
@@ -2458,6 +2481,21 @@ def _conv3d_library(x, kflip):
             padding=tuple(s // 2 for s in kflip.shape))[0, 0]
 
 
+def _blur_library(x, ks):
+    """The library yardstick of a separable blur: cuDNN conv3d once per
+    axis (x, then y, then z; it correlates, so the taps flipped), TF32
+    off for the calls."""
+    import torch
+    w3 = [ks[0].flip(0)[None, None, :], ks[1].flip(0)[None, :, None],
+          ks[2].flip(0)[:, None, None]]
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        v = x[None, None]
+        for w in w3:
+            v = torch.nn.functional.conv3d(
+                v, w[None, None], padding=tuple(s // 2 for s in w.shape))
+        return v[0, 0]
+
+
 def phase_filter_kernels(chk, card, dev="cuda"):
     """8a: the per-axis blur mode against its twin at halfwidths 60 and 80
     on AXIS_SHAPE (and against the fused kernel where both run) and at
@@ -2490,17 +2528,9 @@ def phase_filter_kernels(chk, card, dev="cuda"):
                       f"blur3_plain: max|d|={err:.3g}")
         del want
         ms = cuda_ms(lambda: blur_cuda.blur3_axis(x, ks), 5)
-        conv3d = torch.nn.functional.conv3d
-        w3 = [ks[2].flip(0)[:, None, None], ks[1].flip(0)[None, :, None],
-              ks[0].flip(0)[None, None, :]]
 
         def library():
-            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-                v = x[None, None]
-                for w in w3:
-                    v = conv3d(v, w[None, None], padding=tuple(
-                        s // 2 for s in w.shape))
-                return v[0, 0]
+            return _blur_library(x, ks)
         lib = library()
         ok_l, err_l, _ = close(lib, got, 1e-4, 1e-5)
         chk.check(ok_l, f"conv3d per axis (library, TF32 off) == blur3_axis "
@@ -2553,20 +2583,29 @@ def phase_filter_kernels(chk, card, dev="cuda"):
     for hw in LADDER_HWS:
         ks = _gauss_taps(hw, dev)
         plan = blur_cuda.smem_plan(hw, hw, hw)
+        extra = ""
         if hw in (6, 9):
             got = blur_cuda.blur3(x, ks)
-            ok, err, _ = close(got, blur_cuda.blur3_plain(x, ks), 1e-5, 1e-6)
+            want, pms = timed_ms(lambda: blur_cuda.blur3_plain(x, ks))
+            ok, err, _ = close(got, want, 1e-5, 1e-6)
             chk.check(ok, f"blur3 hw={hw} at {BLOB_SHAPE} against its twin: "
                           f"max|d|={err:.3g}")
             stats.setdefault("blur3", {"err": Err()})
             stats["blur3"]["err"] = worst(stats["blur3"]["err"], err)
-            del got
+            del want
+            lib = _blur_library(x, ks)
+            ok_l, err_l, _ = close(lib, got, 1e-4, 1e-5)
+            chk.check(ok_l, f"conv3d per axis (library, TF32 off) == blur3 "
+                            f"hw={hw} at {BLOB_SHAPE}: max|d|={err_l:.3g}")
+            del lib, got
+            lms = cuda_ms(lambda: _blur_library(x, ks), 2)
+            extra = f"; plain {pms:.3f} ms, conv3d per axis {lms:.3f} ms"
         ms = cuda_ms(lambda: blur_cuda.blur3(x, ks), 3)
         b = bound_ms(8 * nvox, 3 * BLUR_OPS_PER_TAP * (2 * hw + 1) * nvox)
         print(f"  blur3 hw={hw} ({'compiled' if plan[0] == 8 and hw <= 8 else 'runtime'} "
               f"width, {plan[0]} rows): {ms:.3f} ms at {BLOB_SHAPE}, bound "
-              f"{b[0]:.3f} ms ({b[1]}), {100 * b[0] / ms:.0f}% [{card}]",
-              flush=True)
+              f"{b[0]:.3f} ms ({b[1]}), {100 * b[0] / ms:.0f}%{extra} "
+              f"[{card}]", flush=True)
     del x
     torch.cuda.empty_cache()
 
@@ -2887,6 +2926,508 @@ def phase_blob_mesh(chk, card, tmp, blob, dev="cuda"):
         os.unlink(f)
 
 
+# --- phase 9: the experimental handlers, the 2-D filters, the tools ----------
+
+EXP_SHAPE = BLOB_SHAPE          # 9a: 8b's input and mask, (512, 1024, 1024)
+EXP_ARGS = ("-template-gauss 3 6", "-doggxy 2 4 2")
+EXP_CROP = (24, 48, 64)         # 9a's card-against-CPU crop, across the
+#                                 mask's edge
+TEMPLATE_SLAB = (16, 512, 512)  # the 31^3 kernel timed against its twin
+DIST_SHAPE = MAIN_SHAPE         # 9b
+DIST_POINTS = 1000
+DIST_SLAB = 8                   # 9b's planes held against the CPU
+RADIAL_BLOBS = 500              # 9b's -blob-radial-intensity
+SPHERES = (300, 12)             # 9b's -random-spheres: count, diameter
+TOOL_CROP = (64, 128, 128)      # 9c's card-against-CPU crop
+KERNELS.update({
+    # the dense kernel's (1, Ky, Kx) mode: -doggxy's 2-D pass (XLA's conv
+    # in the JAX package, whose dogg_xy calls dense_conv3d with a
+    # (1, Ky, Kx) kernel)
+    "conv3d_dense_yx": ("visfd_tpu_torch/csrc/conv3d.cu",
+                        "visfd_tpu/ops/conv.py:164"),
+    # the dense kernel at -template-gauss 3 6's 31^3 amplitude kernel
+    "conv3d_dense_31": ("visfd_tpu_torch/csrc/conv3d.cu",
+                        "visfd_tpu/ops/conv.py:164"),
+})
+
+
+def _exp_kernels():
+    """(-template-gauss 3 6 -w 1's amplitude kernel w Q_ (31^3), its
+    sum |w Q_|, -doggxy 2 4 2's 2-D kernel (1, 21, 21)), as the port
+    builds them."""
+    from visfd_tpu_torch.ops import kernels as K
+    w = K.gen_gauss_kernel_3d((6.0,) * 3, 2.0, (15,) * 3, normalize=False)
+    q = K.gen_gauss_kernel_3d((3.0,) * 3, 2.0, (15,) * 3, normalize=False)
+    q_ = q - float((w * q).sum() / w.sum())
+    q_ = q_ / np.sqrt((w * q_ * q_).sum())
+    ka = K.gen_gauss_kernel_3d((2.0, 2.0, 0.0), 2.0, (10, 10, 0))
+    kb = K.gen_gauss_kernel_3d((4.0, 4.0, 0.0), 2.0, (10, 10, 0))
+    return ((w * q_).astype(np.float32), float(np.abs(w * q_).sum()),
+            (ka - kb).astype(np.float32))
+
+
+def phase_exp_kernels(chk, card, dev="cuda"):
+    """9a (kernels): the dense kernel's (1, 21, 21) mode (-doggxy's 2-D
+    pass) at EXP_SHAPE and its 31^3 mode (-template-gauss's amplitude) on
+    TEMPLATE_SLAB, each against its twin and cuDNN conv3d (TF32 off):
+    checks, CUDA-event times, bounds.  Returns per-kernel stats."""
+    import torch
+    from visfd_tpu_torch.ops import dense_cuda
+    print(f"== phase 9a (kernels): the dense kernel's (1, 21, 21) mode on "
+          f"{EXP_SHAPE}, its 31^3 mode on {TEMPLATE_SLAB} [{card}]",
+          flush=True)
+    k31, _, k2 = _exp_kernels()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 90)
+    stats = {}
+    for name, shape, k in (("conv3d_dense_yx", EXP_SHAPE, k2),
+                           ("conv3d_dense_31", TEMPLATE_SLAB, k31)):
+        x = torch.randn(shape, generator=gen, device=dev)
+        nvox = x.numel()
+        kf = torch.as_tensor(k, device=dev).flip(0, 1, 2).contiguous()
+        got = dense_cuda.conv3d_dense(x, kf)
+        want, pms = timed_ms(lambda: dense_cuda.conv3d_dense_plain(x, kf))
+        ok, err, _ = close(got, want, 1e-5, 1e-6)
+        chk.check(ok, f"{name} ({'x'.join(map(str, k.shape))} taps, "
+                      f"{shape}) against its twin: max|d|={err:.3g}")
+        del want
+        lib = _conv3d_library(x, kf)
+        ok_l, err_l, _ = close(lib, got, 1e-4, 1e-5)
+        chk.check(ok_l, f"conv3d (library, TF32 off) == {name} to rtol "
+                        f"1e-4: max|d|={err_l:.3g}")
+        del lib, got
+        ms = cuda_ms(lambda: dense_cuda.conv3d_dense(x, kf), 3)
+        lms = cuda_ms(lambda: _conv3d_library(x, kf), 2)
+        b = bound_ms(8 * nvox, 2 * k.size * nvox)
+        print(f"  {name}: kernel {ms:.3f} ms, plain {pms:.3f} ms, conv3d "
+              f"{lms:.3f} ms, bound {b[0]:.3f} ms ({b[1]}), "
+              f"{100 * b[0] / ms:.1f}% [{card}]", flush=True)
+        stats[name] = {"err": err, "ms": ms, "plain_ms": pms,
+                       "bound_ms": b[0], "bound_by": b[1], "library_ms": lms}
+        del x
+        torch.cuda.empty_cache()
+    return stats
+
+
+def _mrc_view(path):
+    """A read-only memory map of the (Z, Y, X) samples of a float32 MRC
+    file (mode 2), so that a crop or a shape costs no full read."""
+    with open(path, "rb") as fh:
+        head = np.frombuffer(fh.read(96), "<i4")
+    nx, ny, nz, mode = (int(v) for v in head[:4])
+    assert mode == 2, f"{path}: mode {mode}, not float32"
+    return np.memmap(path, "<f4", "r", offset=1024 + int(head[23]),
+                     shape=(nz, ny, nx))
+
+
+class _HeldOutput:
+    """Stands in for filter_mrc's ``mrc`` module during a run: keeps the
+    arrays the run writes (``arrays``, by file name) and writes them only
+    when ``write`` is set."""
+
+    def __init__(self, write):
+        from visfd_tpu_torch.cli import filter_mrc as TFM
+        self.tfm, self.mrc, self.write, self.arrays = TFM, TFM.mrc, write, {}
+
+    def write_mrc(self, f, data, *args, **kw):
+        self.arrays[f] = data
+        if self.write:
+            self.mrc.write_mrc(f, data, *args, **kw)
+
+    def __getattr__(self, name):
+        return getattr(self.mrc, name)
+
+    def __enter__(self):
+        self.tfm.mrc = self
+        return self
+
+    def __exit__(self, *exc):
+        self.tfm.mrc = self.mrc
+
+
+def _exp_crop_inputs(tmp, fin, fmask):
+    """EXP_CROP crops of 9a's input and mask, across the mask's lower
+    edge, written to files: (input file, mask file, input array)."""
+    from visfd_tpu_torch.io import mrc
+    z0 = EXP_SHAPE[0] // 10 - EXP_CROP[0] // 2
+    sl = (slice(z0, z0 + EXP_CROP[0]), slice(0, EXP_CROP[1]),
+          slice(0, EXP_CROP[2]))
+    x = np.array(_mrc_view(fin)[sl])
+    m = np.array(_mrc_view(fmask)[sl])
+    cin, cmask = os.path.join(tmp, "ec_in.mrc"), os.path.join(tmp,
+                                                               "ec_mask.mrc")
+    mrc.write_mrc(cin, x)
+    mrc.write_mrc(cmask, m)
+    return cin, cmask, x
+
+
+def phase_experimental(chk, card, tmp, blob, dev="cuda"):
+    """9a: -template-gauss 3 6 and -doggxy 2 4 2 at -w 1 on 8b's input
+    (EXP_SHAPE), with and without 8b's mask: launches, walls, spans, peak
+    card memory; -mesh 4 (unmasked) bit for bit one device; an EXP_CROP
+    crop card against CPU.  Returns (launches, {flag: unmasked output})."""
+    import torch
+    from visfd_tpu_torch.io import mrc
+    from visfd_tpu_torch.ops import blur_cuda, dense_cuda
+    fin, fmask = blob[0], blob[1]
+    mesh_devs = [str(d) for row in _mesh().devices for d in row]
+    label = f"{'x'.join(map(str, EXP_SHAPE[::-1]))} (X x Y x Z)"
+    print(f"== phase 9a: {', '.join(EXP_ARGS)} at -w 1 on {label}, with and "
+          f"without -mask, -mesh {MESH_DEVICES}, a {EXP_CROP} crop card "
+          f"against CPU [{card}]", flush=True)
+    launches, outs = {}, {}
+    for args in EXP_ARGS:
+        flag = args.split()[0]
+        for masked in (False, True):
+            # the masked run computes all of it and writes nothing (its
+            # output is checked on the crop below)
+            o = os.path.join(tmp, f"exp{flag}.mrc")
+            argv = ((f"-mask {fmask} " if masked else f"-out {o} ")
+                    + f"-w 1 -in {fin} {args}").split()
+            blur_cuda.blur3.launches = dense_cuda.conv3d_dense.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            with _HeldOutput(write=True) as held:
+                rc, wall, rep = _run_cli(argv, dev)
+            counts = {"blur3": blur_cuda.blur3.launches,
+                      "conv3d_dense": dense_cuda.conv3d_dense.launches}
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            # -template-gauss: the background blur (numerator and, with a
+            # mask, the mask's blur) and the amplitude; -doggxy: the z pass
+            # and the 2-D pass
+            want = {"blur3": 2 if masked and flag == "-template-gauss" else 1,
+                    "conv3d_dense": 1}
+            ok = rc == 0 and counts == want
+            if not masked:
+                one = held.arrays.get(o)
+                ok &= (one is not None and one.shape == EXP_SHAPE
+                       and bool(np.isfinite(one).all()))
+            chk.check(ok, f"{args}{' -mask' if masked else ''}: exit {rc}"
+                          f"{'' if masked else ', output finite'}; launches "
+                          f"{counts} (want {want})")
+            print(f"  {args}{' -mask' if masked else ''}: wall {wall:.3f} s; "
+                  f"{_spans(rep)}; peak card memory {peak:.2f} GiB "
+                  f"[{card}]", flush=True)
+            if not masked:
+                outs[flag] = o
+                launches["conv3d_dense_31" if flag == "-template-gauss"
+                         else "conv3d_dense_yx"] = counts["conv3d_dense"]
+        # -mesh 4: its output held in memory and compared there, unwritten
+        mo = os.path.join(tmp, f"exp{flag}_mesh.mrc")
+        argv = (f"-w 1 -in {fin} -out {mo} {args} -mesh "
+                f"{MESH_DEVICES}").split()
+        with _HeldOutput(write=False) as held:
+            rc, wall, rep = _run_cli(argv, dev, mesh_devs)
+        out = held.arrays.get(mo)
+        nd = (int((out.view(np.int32) != one.view(np.int32)).sum())
+              if rc == 0 and out is not None and one is not None
+              and out.shape == one.shape else -1)
+        chk.check(nd == 0, f"{args} -mesh {MESH_DEVICES} == one device: "
+                           f"{nd} voxels differ")
+        print(f"  {args} -mesh {MESH_DEVICES}: wall {wall:.3f} s (no write); "
+              f"{_spans(rep)} [{card}]", flush=True)
+        del out, one, held
+
+    # a crop, card against CPU
+    cin, cmask, xc = _exp_crop_inputs(tmp, fin, fmask)
+    mc = mrc.read_mrc(cmask).data
+    _, wq_sum, _ = _exp_kernels()
+    for args in EXP_ARGS:
+        for masked in (False, True):
+            res = []
+            for d in (dev, "cpu"):
+                o = os.path.join(tmp, f"ec_{d}.mrc")
+                _run_cli(((f"-mask {cmask} " if masked else "")
+                          + f"-w 1 -in {cin} -out {o} {args}").split(), d)
+                res.append(torch.tensor(mrc.read_mrc(o).data))
+            if masked and args.startswith("-template"):
+                # masked voxels are written as 0 (settings.py:895-896)
+                zero = bool((res[0].numpy()[mc == 0] == 0).all())
+                chk.check(0 < int((mc == 0).sum()) < mc.size and zero,
+                          f"{args} -mask on the crop (across the mask's "
+                          f"edge): masked voxels 0 on the card: {zero}")
+            if args.startswith("-template"):
+                # absolute: the kernel w Q_ has zero mean, x - background
+                # cancels (tests/test_torch_experimental.py)
+                atol = 2.0 ** -20 * float(np.abs(xc).max()) * wq_sum
+                ok, err, _ = close(res[0], res[1], 1e-30, atol, absolute=True)
+                what = f"max|d|={err:.3g} (atol {atol:.3g})"
+            else:
+                ok, err, _ = close(res[0], res[1], 1e-5, 1e-6)
+                what = f"max|d|={err:.3g}"
+            chk.check(ok, f"{args}{' -mask' if masked else ''} on the crop: "
+                          f"card == CPU ({what})")
+    return launches, outs
+
+
+def phase_distance(chk, card, tmp, blob, dev="cuda"):
+    """9b: -distance-points (DIST_POINTS points; DIST_SLAB planes bit for
+    bit the CPU's) and -distance-to-voxels (20 points' distances equal the
+    CPU's) on a seeded DIST_SHAPE phantom, -random-spheres (SPHERES),
+    -blob-radial-intensity min over RADIAL_BLOBS of 8b's blobs: walls."""
+    from visfd_tpu_torch.features import experimental as E
+    from visfd_tpu_torch.io import mrc
+    from visfd_tpu_torch.utils.phantom import blob_phantom
+    nz, ny, nx = DIST_SHAPE
+    label = f"{'x'.join(map(str, DIST_SHAPE[::-1]))} (X x Y x Z)"
+    print(f"== phase 9b: -distance-points ({DIST_POINTS} points), "
+          f"-distance-to-voxels, -random-spheres on {label}; "
+          f"-blob-radial-intensity over {RADIAL_BLOBS} of 8b's blobs "
+          f"[{card}]", flush=True)
+    vol, mask, _, _ = blob_phantom(DIST_SHAPE, seed=SEED + 91, n_blobs=800,
+                                   device=dev)
+    x, m = vol.cpu().numpy(), mask.cpu().numpy()
+    del vol, mask
+    fin, fmask = os.path.join(tmp, "d_in.mrc"), os.path.join(tmp,
+                                                              "d_mask.mrc")
+    mrc.write_mrc(fin, x)
+    mrc.write_mrc(fmask, m)
+    rng = np.random.default_rng(SEED + 92)
+    pts = rng.uniform(0, 1, (DIST_POINTS, 3)) * np.array([nx, ny, nz])
+    fpts = os.path.join(tmp, "d_pts.txt")
+    np.savetxt(fpts, pts, fmt="%.3f")
+    pts_vox = np.floor(np.loadtxt(fpts) + 0.5).astype(np.int64)
+
+    fo = os.path.join(tmp, "d_out.mrc")
+    for masked in (False, True):
+        rc, wall, rep = _run_cli(((f"-mask {fmask} " if masked else "")
+                                  + f"-w 1 -in {fin} -out {fo} "
+                                  f"-distance-points {fpts}").split(), dev)
+        out = mrc.read_mrc(fo).data
+        z0 = nz // 2
+        slab = E.distance_to_points(
+            (DIST_SLAB, ny, nx), pts_vox - np.array([0, 0, z0]), 1.0,
+            mask=None if not masked else m[z0:z0 + DIST_SLAB],
+            background=None if not masked else x[z0:z0 + DIST_SLAB],
+            device="cpu").numpy()
+        nd = int((out[z0:z0 + DIST_SLAB].view(np.int32)
+                  != slab.view(np.int32)).sum())
+        chk.check(rc == 0 and out.shape == DIST_SHAPE and nd == 0,
+                  f"-distance-points{' -mask' if masked else ''}: exit {rc}; "
+                  f"{DIST_SLAB} planes card == CPU: {nd} voxels differ")
+        print(f"  -distance-points{' -mask' if masked else ''}: wall "
+              f"{wall:.3f} s; {_spans(rep)} [{card}]", flush=True)
+    del out
+
+    fd = os.path.join(tmp, "d_dist.txt")
+    rc, wall, rep = _run_cli(f"-w 1 -in {fin} -distance-to-voxels {fpts} {fd} "
+                             f"-10 -0.8".split(), dev)
+    lines = open(fd).read().splitlines()
+    cpu = E.distance_points_to_feature(x, pts_vox[:20], -10, -0.8, 1.0,
+                                       device="cpu")
+    same = lines[:20] == [f"{d}" for d in cpu]
+    n_sel = int(((x >= -10) & (x <= -0.8)).sum())
+    chk.check(rc == 0 and len(lines) == DIST_POINTS and same,
+              f"-distance-to-voxels: exit {rc}, {len(lines)} distances, the "
+              f"first 20 == the CPU's: {same}")
+    print(f"  -distance-to-voxels ({n_sel} voxels selected): wall {wall:.3f} "
+          f"s; {_spans(rep)} [{card}]", flush=True)
+
+    frs = os.path.join(tmp, "d_rs.txt")
+    n, diam = SPHERES
+    # every brightness, inside the mask's slab
+    rc, wall, rep = _run_cli(f"-w 1 -mask {fmask} -in {fin} -out {fo} "
+                             f"-random-spheres {frs} {n} {diam} -10 10 "
+                             f"{SEED}".split(), dev)
+    occ = mrc.read_mrc(fo).data
+    n_rs = len(open(frs).read().splitlines())
+    chk.check(rc == 0 and n_rs == n and occ.shape == DIST_SHAPE,
+              f"-random-spheres: exit {rc}, {n_rs} spheres")
+    print(f"  -random-spheres {n} x {diam}: wall {wall:.3f} s; {_spans(rep)} "
+          f"[{card}]", flush=True)
+    del occ, x, m
+    for f in (fin, fmask, fo, fd, frs):
+        os.unlink(f)
+
+    bin_, _, stem = blob[0], blob[1], blob[2]
+    flist = os.path.join(tmp, "d_blobs.txt")
+    with open(stem + ".txt") as src, open(flist, "w") as dst:
+        for i, line in enumerate(src):
+            if i == RADIAL_BLOBS:
+                break
+            dst.write(line)
+    base = os.path.join(tmp, "d_prof")
+    rc, wall, rep = _run_cli(f"-w {BLOB_W} -in {bin_} -blob-radial-intensity "
+                             f"min {flist} {base}".split(), dev)
+    profs = [f for f in os.listdir(tmp) if f.startswith("d_prof_")]
+    chk.check(rc == 0 and len(profs) == RADIAL_BLOBS,
+              f"-blob-radial-intensity min: exit {rc}, {len(profs)} profiles")
+    print(f"  -blob-radial-intensity over {RADIAL_BLOBS} blobs: wall "
+          f"{wall:.3f} s; {_spans(rep)} [{card}]", flush=True)
+    for f in profs + ["d_blobs.txt"]:
+        os.unlink(os.path.join(tmp, f))
+
+
+def _tool(run, argv, **kw):
+    """(exit code, wall s, stdout) of one tool run; stderr swallowed."""
+    import contextlib
+    import io
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = run([str(a) for a in argv], **kw)
+    return rc, time.perf_counter() - t0, out.getvalue()
+
+
+def _icosphere_ply(path, centre, radius, levels=3):
+    """A closed icosphere (20 * 4^levels faces) as an ASCII PLY."""
+    t = (1.0 + 5 ** 0.5) / 2
+    v = [(-1, t, 0), (1, t, 0), (-1, -t, 0), (1, -t, 0), (0, -1, t),
+         (0, 1, t), (0, -1, -t), (0, 1, -t), (t, 0, -1), (t, 0, 1),
+         (-t, 0, -1), (-t, 0, 1)]
+    v = [np.array(p, np.float64) / np.linalg.norm(p) for p in v]
+    f = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
+         (1, 5, 9), (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8),
+         (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8), (3, 8, 9),
+         (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1)]
+    for _ in range(levels):
+        mid, nf = {}, []
+
+        def m(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in mid:
+                p = v[a] + v[b]
+                v.append(p / np.linalg.norm(p))
+                mid[key] = len(v) - 1
+            return mid[key]
+        for a, b, c in f:
+            ab, bc, ca = m(a, b), m(b, c), m(c, a)
+            nf += [(a, ab, ca), (b, bc, ab), (c, ca, bc), (ab, bc, ca)]
+        f = nf
+    with open(path, "w") as fh:
+        fh.write(f"ply\nformat ascii 1.0\nelement vertex {len(v)}\n"
+                 "property float x\nproperty float y\nproperty float z\n"
+                 f"element face {len(f)}\n"
+                 "property list uchar int vertex_indices\nend_header\n")
+        for p in v:
+            q = np.asarray(centre) + radius * p
+            fh.write(f"{q[0]:.6f} {q[1]:.6f} {q[2]:.6f}\n")
+        for a, b, c in f:
+            fh.write(f"3 {a} {b} {c}\n")
+    return len(f)
+
+
+def phase_tools(chk, card, tmp, blob, exp_outs, dev="cuda"):
+    """9c: the nine companion tools on files earlier phases wrote (8b's
+    input, mask and blob list; 9a's -template-gauss and -doggxy outputs,
+    all EXP_SHAPE): walls; the three device tools card against CPU on a
+    TOOL_CROP crop."""
+    from visfd_tpu_torch.cli import (combine_mrc, convert_to_float, crop_mrc,
+                                     draw_filter_1d, histogram_mrc,
+                                     print_mrc_stats, pval_mrc, sum_voxels,
+                                     voxelize_mesh)
+    from visfd_tpu_torch.io import mrc
+    fin, fmask, stem = blob[0], blob[1], blob[2]
+    fa, fb = exp_outs["-template-gauss"], exp_outs["-doggxy"]
+    nz, ny, nx = EXP_SHAPE
+    print(f"== phase 9c: the nine tools on "
+          f"{'x'.join(map(str, EXP_SHAPE[::-1]))} files, the device tools "
+          f"card against CPU on a {TOOL_CROP} crop [{card}]", flush=True)
+    walls = {}
+
+    def tool(name, run, argv, **kw):
+        rc, wall, out = _tool(run, argv, **kw)
+        walls[name] = wall
+        print(f"  {name} {' '.join(os.path.basename(str(a)) for a in argv)}: "
+              f"exit {rc}, wall {wall:.3f} s [{card}]", flush=True)
+        return rc, out
+
+    fc = os.path.join(tmp, "t_comb.mrc")
+    rc, _ = tool("combine_mrc", combine_mrc.run,
+                 ["-mask", fmask, fa, "*", fb + ",0,0.01", fc], device=dev)
+    chk.check(rc == 0 and _mrc_view(fc).shape == EXP_SHAPE,
+              f"combine_mrc: exit {rc}")
+    os.unlink(fc)
+    rc, out = tool("sum_voxels", sum_voxels.run,
+                   ["-mask", fmask, "-thresh2", "-1", "-0.5", "-ave", fin],
+                   device=dev)
+    chk.check(rc == 0 and 0.0 <= float(out) <= 1.0,
+              f"sum_voxels -thresh2 -mask -ave: exit {rc}, {out.strip()}")
+    # pval_mrc on the point-count image of 8b's blobs (x y z of each row)
+    f3 = os.path.join(tmp, "t_pts.txt")
+    crds = np.loadtxt(stem + ".txt", ndmin=2)[:, :3]
+    np.savetxt(f3, crds, fmt="%.3f")
+    rc, out = tool("pval_mrc", pval_mrc.run,
+                   ["-image-size", nx, ny, nz, "-w", BLOB_W, "-crds", f3,
+                    "-gauss-sweep", "100", "300", "1.8", "-max"], device=dev)
+    rows = [ln.split() for ln in out.strip().splitlines()]
+    chk.check(rc == 0 and len(rows) == 3
+              and all(0.0 <= float(r[0]) <= 1.0 for r in rows),
+              f"pval_mrc -gauss-sweep 100 300 1.8 -max on {len(crds)} "
+              f"blobs: exit {rc}, {len(rows)} rows")
+    fcr = os.path.join(tmp, "t_crop.mrc")
+    rc, _ = tool("crop_mrc", crop_mrc.run,
+                 [fin, fcr, 0, nx // 2 - 1, 0, ny // 2 - 1, 0, nz // 2 - 1])
+    crop = mrc.read_mrc(fcr).data
+    chk.check(rc == 0 and np.array_equal(
+        crop, _mrc_view(fin)[:nz // 2, :ny // 2, :nx // 2]),
+              f"crop_mrc: exit {rc}, {crop.shape} equal to the slice")
+    ff = os.path.join(tmp, "t_float.mrc")
+    rc, _ = tool("convert_to_float", convert_to_float.run, [fcr, ff])
+    chk.check(rc == 0 and np.array_equal(mrc.read_mrc(ff).data, crop),
+              f"convert_to_float: exit {rc}")
+    del crop
+    for f in (fcr, ff):
+        os.unlink(f)
+    rc, out = tool("print_mrc_stats", print_mrc_stats.run, [fin])
+    chk.check(rc == 0 and len(out) > 0, f"print_mrc_stats: exit {rc}")
+    rc, out = tool("histogram_mrc", histogram_mrc.run,
+                   ["-n", "100", "-mask", fmask, fin])
+    n_hist = sum(int(ln.split()[1]) for ln in out.strip().splitlines())
+    n_in = int(np.count_nonzero(_mrc_view(fmask)))
+    chk.check(rc == 0 and n_hist == n_in,
+              f"histogram_mrc -mask: exit {rc}, {n_hist} voxels counted of "
+              f"{n_in} inside the mask")
+    ply, fv = os.path.join(tmp, "t_sphere.ply"), os.path.join(tmp, "t_vox.mrc")
+    n_faces = _icosphere_ply(ply, (64.0, 64.0, 64.0), 40.0)
+    rc, _ = tool("voxelize_mesh", voxelize_mesh.run,
+                 ["-m", ply, "-o", fv, "-b", 0, 128, 0, 128, 0, 128, "-w", 1])
+    vox = float(mrc.read_mrc(fv).data.sum())
+    ball = 4.0 / 3.0 * np.pi * 40.0 ** 3
+    chk.check(rc == 0 and abs(vox / ball - 1) < 0.02,
+              f"voxelize_mesh ({n_faces} faces): exit {rc}, {vox:.0f} voxels "
+              f"inside, the ball {ball:.0f}")
+    for f in (ply, fv, f3):
+        os.unlink(f)
+    rc, out = tool("draw_filter_1d", draw_filter_1d.run,
+                   ["-dogg", 1, 0.5, 2, 4, 2, 1.5])
+    chk.check(rc == 0 and len(out.splitlines()) == 401,
+              f"draw_filter_1d: exit {rc}")
+
+    # the device tools, card against CPU on a crop
+    zc = nz // 10 - TOOL_CROP[0] // 2
+    sl = (slice(zc, zc + TOOL_CROP[0]), slice(0, TOOL_CROP[1]),
+          slice(0, TOOL_CROP[2]))
+    cfiles = []
+    for f in (fa, fb, fmask, fin):
+        o = os.path.join(tmp, "tc_" + os.path.basename(f))
+        mrc.write_mrc(o, np.array(_mrc_view(f)[sl]))
+        cfiles.append(o)
+    ca, cb, cm, ci = cfiles
+    res = {}
+    for d in (dev, "cpu"):
+        oc = os.path.join(tmp, f"tc_comb_{d}.mrc")
+        r = [_tool(combine_mrc.run, ["-mask", cm, ca, "*", cb + ",0,0.01",
+                                     oc], device=d)[0],
+             _tool(sum_voxels.run, ["-mask", cm, "-thresh2", "-1", "-0.5",
+                                    "-stddev", ci], device=d),
+             _tool(pval_mrc.run, ["-in", ci, "-w", BLOB_W, "-gauss", "100",
+                                  "-min", "-mask", cm], device=d)]
+        res[d] = (open(oc, "rb").read(), r[1][2], r[2][2])
+        os.unlink(oc)
+    same_c = res[dev][0] == res["cpu"][0]
+    same_s = res[dev][1] == res["cpu"][1]
+    pc, pw = res[dev][2].split(), res["cpu"][2].split()
+    same_p = len(pc) == len(pw) == 6 and pc[2:5] == pw[2:5] and np.allclose(
+        [float(v) for v in pc[:2] + pc[5:]],
+        [float(v) for v in pw[:2] + pw[5:]], rtol=1e-5)
+    chk.check(same_c and same_s and same_p,
+              f"the crop, card == CPU: combine_mrc bytes {same_c}, "
+              f"sum_voxels line {same_s}, pval_mrc voxel and numbers "
+              f"(rtol 1e-5) {same_p}")
+    for f in cfiles:
+        os.unlink(f)
+    return walls
+
+
 def main() -> int:
     try:
         import torch  # noqa: F401
@@ -2940,6 +3481,13 @@ def main() -> int:
         filt_launches = chk.run(phase_filters, chk, card, tmp)
         if blob is not None:
             chk.run(phase_blob_mesh, chk, card, tmp, blob)
+        exp_stats = chk.run(phase_exp_kernels, chk, card)
+        exp = None
+        if blob is not None:
+            exp = chk.run(phase_experimental, chk, card, tmp, blob)
+            chk.run(phase_distance, chk, card, tmp, blob)
+        if exp is not None:
+            chk.run(phase_tools, chk, card, tmp, blob, exp[1])
     print(f"total {time.perf_counter() - t_start:.1f} s")
     if chk.failed:
         print(f"chip_smoke: {len(chk.failed)} check(s) failed:",
@@ -2952,15 +3500,16 @@ def main() -> int:
     # kernels, the -mesh run (5c) for the per-shard modes, the -connect
     # runs for the vote score with its vector: one device (6c) and, per
     # block, -mesh (7d); 8e's -gauss 21 (halfwidth 55) for the blur's
-    # per-axis mode and its -ggauss 2 for the dense kernel
-    launches = {**launches,
+    # per-axis mode and its -ggauss 2 for the dense kernel; 9a's -doggxy
+    # and -template-gauss runs for the dense kernel's 2-D and 31^3 modes
+    launches = {**launches, **exp[0],
                 **{k: mesh_launches[k] for k in ("hessian_principal_block",
                                                  "tv_votes_prepadded")},
                 "sym3_score+v": connect[1]["sym3_score"],
                 "sym3_score_sharded+v": mesh_v, **filt_launches}
     stats = {**stats, **mesh_stats, **mesh_v_stats,
              "blur3_axis": filt_stats["blur3_axis"],
-             "conv3d_dense": filt_stats["conv3d_dense"]}
+             "conv3d_dense": filt_stats["conv3d_dense"], **exp_stats}
     stats["blur3"]["err"] = worst(stats["blur3"]["err"],
                                   filt_stats["blur3"]["err"])
     errs = [small, main_errs, mesh_small]
@@ -2974,7 +3523,8 @@ def main() -> int:
                         "ms": s["ms"],
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"],
-                        "library_ms": s["library_ms"]})
+                        "library_ms": s["library_ms"],
+                        "library_shape": s.get("library_shape")})
     import torch
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -408,3 +408,147 @@ def test_segmentation_card_matches_cpu(cuda, kind):
         .labels.cpu().numpy(), want)
     np.testing.assert_array_equal(
         to_host_np(propagate_watershed_sharded(x, mesh, **kw).labels), want)
+
+
+# --- the z pass, the 2-D dense mode, the experimental filters -------------
+
+@pytest.mark.parametrize("hyx", [(1, 1), (3, 2), (0, 3)])
+@pytest.mark.parametrize("masked,normalize", [(False, False), (True, False),
+                                              (True, True)])
+def test_conv3d_dense_2d_mode_matches_twin(cuda, hyx, masked, normalize):
+    """The dense kernel with a (1, Ky, Kx) kernel (ops/filter2d.dense_conv2d)
+    against its twin on the CPU: each z slice correlated on its own, one
+    launch a correlation."""
+    from visfd_tpu_torch.ops import dense_cuda as DC
+    from visfd_tpu_torch.ops import filter2d as F2
+    rng = _rng(81)
+    hy, hx = hyx
+    x = rng.normal(size=(7, 19, 37)).astype(np.float32)
+    m = (rng.uniform(size=x.shape) > 0.3).astype(np.float32) if masked \
+        else None
+    k = np.abs(rng.normal(size=(2 * hy + 1, 2 * hx + 1))).astype(np.float32)
+    n0 = DC.conv3d_dense.launches
+    got = F2.dense_conv2d(torch.tensor(x, device=cuda), k,
+                          None if m is None else torch.tensor(m, device=cuda),
+                          normalize)
+    torch.cuda.synchronize()
+    assert DC.conv3d_dense.launches == n0 + (2 if normalize else 1)
+    want = F2.dense_conv2d(torch.tensor(x), k,
+                           None if m is None else torch.tensor(m), normalize)
+    _close_blur(got.cpu(), want)
+
+
+@pytest.mark.parametrize("hz", [1, 4, 13])
+@pytest.mark.parametrize("shape", [(30, 18, 40), (5, 33, 70)])
+def test_conv1d_axis_z_pass_matches_twin(cuda, hz, shape):
+    """ops/conv.conv1d_axis on the card (blur3 with 1-tap kernels on y
+    and x: one launch) against the plain z pass on the CPU, an asymmetric
+    kernel; over a (2, 2) mesh on the card bit for bit the one-device
+    result."""
+    from visfd_tpu_torch.ops import blur_cuda
+    rng = _rng(82)
+    x = rng.normal(size=shape).astype(np.float32)
+    k = rng.uniform(0.1, 1.0, 2 * hz + 1).astype(np.float32)
+    n0 = blur_cuda.blur3.launches
+    got = conv.conv1d_axis(torch.tensor(x, device=cuda), k, 0)
+    torch.cuda.synchronize()
+    assert blur_cuda.blur3.launches == n0 + 1
+    want = blur_cuda.conv1d_axis(torch.tensor(x), torch.tensor(k), 0)
+    _close_blur(got.cpu(), want)
+    if shape[0] % 2 == 0 and shape[1] % 2 == 0:
+        mesh = make_mesh(4, devices=[cuda] * 4)
+        sh = conv.conv1d_axis(shard(x, mesh), k, 0)
+        assert np.array_equal(to_host_np(sh), got.cpu().numpy())
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_distance_to_points_card_equals_cpu(cuda, masked):
+    """The distance map on the card bit for bit the CPU's (int32 squared
+    distances, a float64 square root rounded to float32)."""
+    from visfd_tpu_torch.features import experimental as EX
+    rng = _rng(83)
+    shape = (17, 40, 4200)
+    pts = np.stack([rng.integers(-5, 4205, 40), rng.integers(0, 40, 40),
+                    rng.integers(0, 17, 40)], -1)
+    x = rng.normal(size=shape).astype(np.float32)
+    kw = dict(mask=(x > 0).astype(np.float32), background=x) if masked \
+        else {}
+    got = EX.distance_to_points(shape, pts, 0.731, device=cuda, **kw)
+    want = EX.distance_to_points(shape, pts, 0.731, device="cpu", **kw)
+    assert np.array_equal(got.cpu().numpy(), want.numpy())
+    d = EX.distance_points_to_feature(x, pts, 3.0, 4.0, 0.731,
+                                      mask=kw.get("mask"), device=cuda)
+    dw = EX.distance_points_to_feature(x, pts, 3.0, 4.0, 0.731,
+                                       mask=kw.get("mask"), device="cpu")
+    assert np.array_equal(d, dw)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("fn", ["template", "doggxy"])
+def test_experimental_filters_card_match_cpu(cuda, masked, fn):
+    """-template-gauss's and -doggxy's functions on the card against the
+    CPU (kernels of at most 7^3 taps): the template amplitude to an
+    absolute 2^-20 max|x| sum|w Q_| (its kernel has zero mean), -doggxy
+    rtol 1e-5 / atol 1e-6 of the largest."""
+    from visfd_tpu_torch.features import experimental as EX
+    rng = _rng(84)
+    x = rng.normal(size=(14, 33, 45)).astype(np.float32)
+    m = (rng.uniform(size=x.shape) > 0.3).astype(np.float32) if masked \
+        else None
+    outs = []
+    for dev in (cuda, "cpu"):
+        xd = torch.tensor(x, device=dev)
+        md = None if m is None else torch.tensor(m, device=dev)
+        if fn == "template":
+            outs.append(EX.template_gen_gauss(xd, (1.5,) * 3, (2.0,) * 3,
+                                              mask=md, truncate_ratio=1.5))
+        else:
+            outs.append(EX.dogg_xy(xd, (1.0, 1.0), (2.0, 2.0), 1.5, mask=md))
+    got, want = outs[0].cpu().numpy(), outs[1].numpy()
+    if fn == "doggxy":
+        _close_blur(got, want)
+        return
+    w = K.gen_gauss_kernel_3d((2.0,) * 3, 2.0, (3,) * 3, normalize=False)
+    q = K.gen_gauss_kernel_3d((1.5,) * 3, 2.0, (3,) * 3, normalize=False)
+    q_ = q - float((w * q).sum() / w.sum())
+    q_ = q_ / np.sqrt((w * q_ * q_).sum())
+    atol = 2.0 ** -20 * float(np.abs(x).max()) * float(np.abs(w * q_).sum())
+    assert float(np.abs(got - want).max()) <= atol
+
+
+def test_device_tools_card_match_cpu(cuda, tmp_path, capsys):
+    """combine_mrc (bytes), sum_voxels (the printed line) and pval_mrc
+    (the extreme's voxel; numbers rtol 1e-5) on the card against the
+    CPU."""
+    from visfd_tpu_torch.cli import combine_mrc, pval_mrc, sum_voxels
+    rng = _rng(85)
+    a = rng.normal(size=(20, 24, 28)).astype(np.float32)
+    m = (rng.uniform(size=a.shape) > 0.3).astype(np.float32)
+    pts = np.zeros(a.shape, np.float32)
+    pts[8:11, 8:11, 8:11] = 1.0
+    for name, v in (("a", a), ("m", m), ("p", pts)):
+        mrc.write_mrc(str(tmp_path / f"{name}.mrc"), v)
+    outs = {}
+    for dev in (cuda, "cpu"):
+        tag = str(dev)[:4]
+        assert combine_mrc.run(["-mask", f"{tmp_path}/m.mrc",
+                                f"{tmp_path}/a.mrc,-0.5,0.5", "*",
+                                f"{tmp_path}/a.mrc",
+                                f"{tmp_path}/c_{tag}.mrc"], device=dev) == 0
+        capsys.readouterr()
+        assert sum_voxels.run(["-mask", f"{tmp_path}/m.mrc", "-thresh2",
+                               "-0.5", "0.5", "-stddev", f"{tmp_path}/a.mrc"],
+                              device=dev) == 0
+        assert pval_mrc.run(["-in", f"{tmp_path}/p.mrc", "-gauss-sweep", "1",
+                             "3", "1.5", "-max"], device=dev) == 0
+        outs[tag] = capsys.readouterr().out.splitlines()
+    assert (tmp_path / "c_cuda.mrc").read_bytes() == \
+        (tmp_path / "c_cpu.mrc").read_bytes()
+    card, cpu = outs["cuda"], outs["cpu"]
+    assert card[0] == cpu[0]
+    for rc, rw in zip(card[1:], cpu[1:]):
+        rc, rw = rc.split(), rw.split()
+        assert rc[2:5] == rw[2:5]
+        np.testing.assert_allclose([float(v) for v in rc[:2] + rc[5:]],
+                                   [float(v) for v in rw[:2] + rw[5:]],
+                                   rtol=1e-5)

@@ -234,3 +234,63 @@ def test_hessian_prepadded_is_the_block_entry_on_views():
             xp[1:-1, 1:-1, 1:-1], xp[0, :, 1:-1], xp[-1, :, 1:-1],
             xp[1:-1, 0, 1:-1], xp[1:-1, -1, 1:-1], SIGMA, formula=formula)
         np.testing.assert_array_equal(to_numpy(got), to_numpy(want))
+
+
+@pytest.fixture(scope="module")
+def hess6():
+    """A (6, 7, 8, 6) field of symmetric tensors and a mask."""
+    rng = np.random.default_rng(51)
+    h = rng.normal(size=(6, 7, 8, 6)).astype(np.float32)
+    mask = (rng.uniform(size=(6, 7, 8)) > 0.3).astype(np.float32)
+    return h, mask
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("order", ["DECREASING_ABS", "INCREASING"])
+def test_diagonalize_hessian_image_matches_jax(hess6, masked, order):
+    """Eigenvalues to rtol 1e-4 / atol 1e-5 of the largest (the closed
+    form's float32 roundings in another order); the Shoemake coordinates
+    through the rebuild, port and JAX to the same tolerance of the input
+    (a rotation has several encodings); masked voxels zero in both."""
+    h, mask = hess6
+    m = mask if masked else None
+    want = np.asarray(JH.diagonalize_hessian_image(
+        jnp.asarray(h), None if m is None else jnp.asarray(m),
+        order=getattr(jsym3.EigenOrder, order)))
+    got = TH.diagonalize_hessian_image(
+        torch.tensor(h), None if m is None else torch.tensor(m),
+        order=getattr(tsym3.EigenOrder, order))
+    scale = float(np.abs(h).max())
+    np.testing.assert_allclose(got[..., :3].numpy(), want[..., :3],
+                               rtol=1e-4, atol=1e-5 * scale)
+    back = TH.undiagonalize_hessian_image(
+        got, None if m is None else torch.tensor(m)).numpy()
+    jback = np.asarray(JH.undiagonalize_hessian_image(
+        jnp.asarray(want), None if m is None else jnp.asarray(m)))
+    keep = h if m is None else h * (m != 0)[..., None]
+    np.testing.assert_allclose(back, keep, rtol=1e-4, atol=1e-5 * scale)
+    np.testing.assert_allclose(jback, keep, rtol=1e-4, atol=1e-5 * scale)
+    if masked:
+        assert (got.numpy()[mask == 0] == 0).all()
+        assert (back[mask == 0] == 0).all()
+
+
+def test_undiagonalize_and_flat_eigenvectors_match_jax(hess6):
+    """On the same [eivals, shoemake] input the rebuild and the unpacking
+    are the same float32 formulas: rtol 1e-5, atol 1e-6 of the largest."""
+    h, _ = hess6
+    diag = np.asarray(jsym3.diagonalize_flat_sym3(jnp.asarray(h)))
+    want = np.asarray(jsym3.undiagonalize_flat_sym3(jnp.asarray(diag)))
+    got = tsym3.undiagonalize_flat_sym3(torch.tensor(diag)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-6 * float(np.abs(want).max()))
+    jvals, jvecs = jsym3.flat_eigenvectors(jnp.asarray(diag))
+    tvals, tvecs = tsym3.flat_eigenvectors(torch.tensor(diag))
+    np.testing.assert_array_equal(tvals.numpy(), np.asarray(jvals))
+    np.testing.assert_allclose(tvecs.numpy(), np.asarray(jvecs), rtol=1e-5,
+                               atol=1e-6)
+    # the rows are orthonormal eigenvectors of the input
+    m = tsym3.flat_to_full(torch.tensor(h))
+    av = torch.einsum("...ij,...dj->...di", m, tvecs)
+    np.testing.assert_allclose(av.numpy(), (tvals[..., None] * tvecs).numpy(),
+                               atol=1e-4 * float(np.abs(h).max()))

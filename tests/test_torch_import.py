@@ -42,6 +42,13 @@ SLICE_MODULES = [
     "visfd_tpu_torch.ops.threshold", "visfd_tpu_torch.ops.draw",
     "visfd_tpu_torch.features.blob", "visfd_tpu_torch.features.supervised",
     "visfd_tpu_torch.ops.morphology", "visfd_tpu_torch.ops.dense_cuda",
+    "visfd_tpu_torch.ops.filter2d", "visfd_tpu_torch.features.experimental",
+    "visfd_tpu_torch.cli.combine_mrc", "visfd_tpu_torch.cli.sum_voxels",
+    "visfd_tpu_torch.cli.pval_mrc", "visfd_tpu_torch.cli.crop_mrc",
+    "visfd_tpu_torch.cli.convert_to_float",
+    "visfd_tpu_torch.cli.print_mrc_stats",
+    "visfd_tpu_torch.cli.histogram_mrc", "visfd_tpu_torch.cli.voxelize_mesh",
+    "visfd_tpu_torch.cli.draw_filter_1d",
     # the card's script and tests, run where jax is absent
     "chip_smoke", "tests.test_torch_cuda_kernels",
 ]
@@ -103,3 +110,38 @@ def test_convert_round_trips_both_layouts():
     np.testing.assert_array_equal(
         to_numpy(to_torch(np.asarray(j), channels_last=True)[2]),
         np.asarray(j[..., 2]))
+
+
+@pytest.mark.parametrize("module", ["features.hessian", "linalg.sym3",
+                                    "features.experimental", "ops.filter2d",
+                                    "ops.conv"])
+def test_public_functions_ported(module):
+    """Every public function of the JAX module has a counterpart of the
+    same name in the port's."""
+    import importlib
+    import inspect
+    jm = importlib.import_module(f"visfd_tpu.{module}")
+    tm = importlib.import_module(f"visfd_tpu_torch.{module}")
+    # callables defined in the module (jitted ones included), no classes
+    names = {n for n, f in vars(jm).items()
+             if callable(f) and not inspect.isclass(f)
+             and not n.startswith("_")
+             and getattr(f, "__module__", None) == jm.__name__}
+    if module == "ops.conv":
+        names &= {"conv1d_axis", "dense_conv3d", "separable_conv3d"}
+    missing = sorted(n for n in names if not hasattr(tm, n))
+    assert names and not missing, missing
+
+
+def test_every_cli_tool_has_a_counterpart():
+    """Each tool of visfd_tpu/cli has a module in visfd_tpu_torch/cli with
+    run() and main()."""
+    import importlib
+    import pathlib
+    root = pathlib.Path(__file__).resolve().parent.parent
+    tools = sorted(p.stem for p in (root / "visfd_tpu" / "cli").glob("*.py")
+                   if p.stem not in ("__init__", "settings"))
+    assert len(tools) == 10
+    for t in tools:
+        m = importlib.import_module(f"visfd_tpu_torch.cli.{t}")
+        assert callable(m.run) and callable(m.main), t

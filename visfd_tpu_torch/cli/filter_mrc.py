@@ -39,6 +39,13 @@ goes to the intensity map as it is.
   on the card); ``-discard-blobs`` (with ``-auto-thresh score
   -supervised``), ``-supervised-multi`` and ``-draw-spheres`` work on
   blob files.
+* The experimental handlers (``features/experimental``):
+  ``-template-gauss`` (the background blur and the amplitude
+  correlation on the card) and ``-doggxy`` (a z pass through ``blur3``,
+  then the 2-D pass through ``csrc/conv3d.cu``) run like the filters;
+  ``-distance-points`` computes its map on the card, ``-distance-to-voxels``
+  its minima; ``-random-spheres`` and ``-blob-radial-intensity`` run on
+  the host, as in the JAX package.
 
 With ``-mesh N|auto|all`` the volume is split into (z, y) blocks over a
 grid of devices (``parallel/mesh``, by default the visible cards):
@@ -52,11 +59,14 @@ blocks with halos as deep as their footprints.  Every output equals the
 single-device run's.  One process drives every block: a multi-process cluster
 (``VISFD_COORDINATOR`` or ``VISFD_NUM_PROCESSES`` set) is refused.
 
-Every flag outside these handlers raises ``InputError`` naming it:
-``-doggxy``, ``-template-gauss``, ``-distance-*``, ``-random-spheres``
-and ``-blob-radial-intensity`` still wait.  A ``-membrane|-curve|-edge``
-volume with a side below 3 voxels is refused, as the JAX CLI's route for
-it (finite differences clamped to the nearest interior voxel) raises.
+The port takes every flag the settings parser takes, which raises
+``InputError`` for the flags it does not know and for the renamed ones
+(``-surface``, ``-planar``, ``-planar-tv``, ``-bs``,
+``--membrane-normals-file``), with the JAX CLI's message.  The orbax
+``-save/-load-progress-sharded`` are refused, naming themselves.  A
+``-membrane|-curve|-edge`` volume with a side below 3 voxels is refused,
+as the JAX CLI's route for it (finite differences clamped to the nearest
+interior voxel) raises.
 
 Usage: python -m visfd_tpu_torch.cli.filter_mrc -in in.rec -out out.rec
        -w 1 -membrane minima 3 -tv 1.5 [-connect 0.5 -connect-angle 30]
@@ -78,6 +88,7 @@ import torch
 from visfd_tpu_torch.cli import settings as S
 from visfd_tpu_torch.cli.settings import InputError, Settings
 from visfd_tpu_torch.features import blob as B
+from visfd_tpu_torch.features import experimental as E
 from visfd_tpu_torch.features import hessian as FH
 from visfd_tpu_torch.features import supervised as SUP
 from visfd_tpu_torch.io import mrc
@@ -107,124 +118,12 @@ from visfd_tpu_torch.segment.propagate import propagate_watershed
 from visfd_tpu_torch.segment.watershed import watershed
 from visfd_tpu_torch.utils.progress import Report, stage
 
-# The flags this slice handles -> how many arguments follow each
-# (None: -rescale-min-max, which takes 0 or 2).
-_HANDLED_FLAGS = {
-    "-in": 1, "-i": 1, "-out": 1, "-o": 1, "-outf": 1, "-out-force": 1,
-    "-mask": 1, "-mask-select": 1, "-mask-out": 1,
-    "-w": 1, "-a2nm": 0, "-ang-to-nm": 0, "-bin": 1,
-    "-membrane": 2, "-surface-ridge": 2, "-curve": 2,
-    "-membrane-background": 1, "-detection-background": 1,
-    "-curve-background": 1,
-    "-tv": 1, "-tv-angle-exponent": 1, "-tv-truncate-ratio": 1,
-    "-tv-best": 1, "-best-visible": 1, "-best": 1,
-    "-tv-threshold": 1, "-detection-threshold": 1,
-    "-truncate": 1, "-truncate-threshold": 1, "-truncate-thresold": 1,
-    "-normalize-filters": 1, "-normalize-near-boundaries": 0,
-    "-no-normalize-near-boundaries": 0,
-    "-invert": 0, "-inv": 0,
-    "-rescale-min-max": None, "-rescale-min-max-in": 0,
-    "-mesh": 1,
-    "-edge": 2, "-surface-edge": 2,
-    "-connect": 1, "-connect-bright": 1, "-connect-saliency": 1,
-    "-connect-dark": 1, "-connect-angle": 1,
-    "-connect-vector-saliency": 1, "-cvs": 1,
-    "-connect-vector-neighbor": 1, "-cvn": 1,
-    "-connect-tensor-saliency": 1, "-cts": 1,
-    "-connect-tensor-neighbor": 1, "-ctn": 1,
-    "-select-cluster": 1, "-must-link": 1, "-undefined-out": 1,
-    "-normals-file": 1, "-surface-normals-file": 1,
-    "-save-progress": 1, "-load-progress": 1,
-    **{f"-max-{unit}-to-{what}": 1 for unit in ("distance", "voxels")
-       for what in ("feature", "surface", "membrane", "edge", "curve")},
-    # -find-minima / -find-maxima
-    "-find-minima": 1, "-find-maxima": 1, "-neighbor-connectivity": 1,
-    "-minima-threshold": 1, "-min-threshold": 1, "-score-upper-bound": 1,
-    "-maxima-threshold": 1, "-max-threshold": 1, "-score-lower-bound": 1,
-    "-boundary-extrema": 0, "-ignore-boundary-extrema": 0,
-    # -watershed
-    "-watershed": 1, "-watershed-device": 0, "-watershed-threshold": 1,
-    "-watershed-show-boundaries": 0, "-watershed-hide-boundaries": 0,
-    "-watershed-boundary": 1, "-markers": 1,
-    # the intensity map and the inputs
-    "-thresh": 1, "-thresh-out": 1, "-thresh2": 2, "-thresh2-out": 2,
-    "-clip": 2, "-cl": 2, "-thresh4": 4, "-thresh4-out": 4,
-    "-thresh-interval": 2, "-thresh-interval-out": 2,
-    "-thresh-gauss": 2, "-thresh-gauss-out": 2,
-    "-thresh-range": 2, "-thresh-range-out": 2, "-rescale": 2, "-fill": 1,
-    "-mask-rect": 6, "-mask-rectangle": 6, "-mask-rect-subtract": 6,
-    "-mask-rectangle-subtract": 6, "-mask-sphere": 4,
-    "-mask-sphere-subtract": 4, "-mask-rect-units-voxels": 0,
-    "-image-size": 3,
-    # the convolution filters and morphology
-    **dict.fromkeys(("-gauss", "-ggauss", "-dog-delta", "-median",
-                     "-dilation", "-dilate", "-erosion", "-erode",
-                     "-opening", "-open", "-closing", "-close",
-                     "-top-hat-white", "-top-hat-black", "-fluct",
-                     "-fluctuation", "-fluctuations", "-log", "-log-d",
-                     "-log-r", "-exponent", "-gauss-exponent",
-                     "-dilation-gauss", "-dilate-gauss", "-erosion-gauss",
-                     "-erode-gauss"), 1),
-    **dict.fromkeys(("-dog", "-dogg", "-exponents", "-gdog-exponents"), 2),
-    **dict.fromkeys(("-gauss-aniso", "-ggauss-aniso", "-log-aniso",
-                     "-fluct-aniso", "-fluctuation-aniso",
-                     "-fluctuations-aniso", "-dilation-binary-soft",
-                     "-dilate-binary-soft", "-erosion-binary-soft",
-                     "-erode-binary-soft"), 3),
-    **dict.fromkeys(("-dog-aniso", "-dogg-aniso"), 6),
-    # -blob and the blob tools
-    **dict.fromkeys(("-blob", "-blobs", "-blob-d", "-blob-diameters",
-                     "-blob-s", "-blob-sigma", "-blob-r", "-blob-radii",
-                     "-blobr"), 5),
-    "-blob-aspect-ratio": 3,
-    **dict.fromkeys(("-blob-separation", "-radial-separation",
-                     "-blob-r-separation", "-blobr-separation",
-                     "-spheres-nonmax-separation-radius",
-                     "-max-volume-overlap", "-max-overlap",
-                     "-spheres-nonmax-overlap", "-max-volume-overlap-small",
-                     "-max-overlap-small", "-spheres-nonmax-overlap-small",
-                     "-max-overlap-radial", "-spheres-nonmax-overlap-radial",
-                     "-minima-ratio", "-score-lower-bound-ratio",
-                     "-maxima-ratio", "-score-upper-bound-ratio",
-                     "-auto-thresh", "-supervised-multi", "-draw-spheres",
-                     "-spheres", "-draw-hollow-spheres", "-diameters",
-                     "-diameter", "-sphere-diameters", "-sphere-diameter",
-                     "-radii", "-radius", "-sphere-radii", "-sphere-radius",
-                     "-radii-voxels", "-sphere-radii-voxels",
-                     "-radius-voxels", "-sphere-radius-voxels",
-                     "-diameter-voxels", "-diameters-voxels",
-                     "-sphere-diameter-voxels", "-sphere-diameters-voxels",
-                     "-foreground", "-spheres-foreground",
-                     "-sphere-foreground", "-background",
-                     "-spheres-background", "-sphere-background",
-                     "-background-scale", "-spheres-background-scale",
-                     "-sphere-background-scale", "-sphere-shell-ratio",
-                     "-spheres-shell-ratio", "-shell-ratio",
-                     "-sphere-shell-thickness", "-spheres-shell-thickness",
-                     "-sphere-shell-thicknesses",
-                     "-spheres-shell-thicknesses",
-                     "-sphere-shell-thickness-min",
-                     "-sphere-shell-thicknesses-min",
-                     "-spheres-shell-thickness-min",
-                     "-spheres-shell-thicknesses-min", "-spheres-scale",
-                     "-sphere-scale"), 1),
-    **dict.fromkeys(("-discard-blobs", "-blob-nonmax", "-blobs-nonmax",
-                     "-supervised", "-spheres-nonmax-radii-range",
-                     "-sphere-nonmax-radii-range",
-                     "-spheres-nonmax-score-range",
-                     "-sphere-nonmax-score-range"), 2),
-    **dict.fromkeys(("-background-auto", "-spheres-normalize",
-                     "-sphere-normalize", "-spheres01", "-spheres-01",
-                     "-sphere01", "-sphere-01", "-spheres-score",
-                     "-sphere-score"), 0),
-}
-
-# flags refused with a reason of their own
-_REFUSED_FLAGS = {
-    "-save-progress-sharded": "an orbax checkpoint, a JAX format; use "
-                              "-save-progress",
-    "-load-progress-sharded": "an orbax checkpoint, a JAX format; use "
-                              "-load-progress",
+# flags the settings parser takes that this port refuses, with the reason
+_REFUSED = {
+    "save_progress_sharded": ("-save-progress-sharded", "an orbax "
+                              "checkpoint, a JAX format; use -save-progress"),
+    "load_progress_sharded": ("-load-progress-sharded", "an orbax "
+                              "checkpoint, a JAX format; use -load-progress"),
 }
 
 # the variables with which the JAX package joins a multi-process cluster
@@ -232,34 +131,17 @@ _REFUSED_FLAGS = {
 _CLUSTER_ENV = ("VISFD_COORDINATOR", "VISFD_NUM_PROCESSES")
 
 
-def _check_flags(argv) -> None:
-    """Raise InputError for the first argument this port does not
-    handle yet (it never ignores one)."""
-    i = 0
-    while i < len(argv):
-        a = argv[i]
-        if a in _REFUSED_FLAGS:
-            raise InputError(f"Error: visfd_tpu_torch refuses {a}: "
-                             f"{_REFUSED_FLAGS[a]}")
-        if a not in _HANDLED_FLAGS:
-            raise InputError(
-                f"Error: {a} is not handled by visfd_tpu_torch yet (it "
-                f"runs -membrane/-curve/-edge with -tv and -connect, "
-                f"-find-minima/-find-maxima, -watershed, the convolution "
-                f"filters and morphology, -blob, -discard-blobs, "
-                f"-supervised-multi, -draw-spheres, the -thresh* "
-                f"intensity map, -mask, -mask-rect/-mask-sphere and "
-                f"binning; -doggxy, -template-gauss, -distance-*, "
-                f"-random-spheres and -blob-radial-intensity still wait: "
-                f"see ROADMAP.md)")
-        n = _HANDLED_FLAGS[a]
-        if n is None:
-            try:
-                float(argv[i + 1]), float(argv[i + 2])
-                n = 2
-            except (IndexError, ValueError):
-                n = 0
-        i += n + 1
+def _check_settings(s: Settings) -> None:
+    """Raise InputError, naming the flag, for what the settings parser
+    takes and this port does not run."""
+    for attr, (flag, why) in _REFUSED.items():
+        if getattr(s, attr):
+            raise InputError(f"Error: visfd_tpu_torch refuses {flag}: {why}")
+    if s.mesh_devices and any(v in os.environ for v in _CLUSTER_ENV):
+        raise InputError(
+            f"Error: -mesh with {' or '.join(_CLUSTER_ENV)} set asks for a "
+            f"multi-process run, which visfd_tpu_torch does not run yet: "
+            f"one process drives every block (see ROADMAP.md)")
 
 
 def _truncate_ratio(s: Settings) -> float:
@@ -995,12 +877,33 @@ def handle_fluct(s: Settings, x, mask) -> np.ndarray:
         normalize=s.normalize_near_boundaries))
 
 
+def handle_template_gauss(s: Settings, x, mask) -> np.ndarray:
+    """``HandleTemplateGauss`` (``handlers_unsupported.cpp:787-1061``):
+    the least-squares template amplitude image."""
+    ratio = s.filter_truncate_ratio if s.filter_truncate_ratio > 0 else 2.5
+    return to_host_np(E.template_gen_gauss(
+        x, s.width_a, s.template_background_radius,
+        m_exp=s.m_exp, n_exp=s.template_background_exponent,
+        mask=mask, truncate_ratio=ratio,
+        normalize_near_boundaries=s.normalize_near_boundaries))
+
+
+def handle_doggxy(s: Settings, x, mask) -> np.ndarray:
+    """``HandleDoggXY`` (``handlers_unsupported.cpp:19-160``); with
+    -doggxy, width_a[2] is the z sigma."""
+    ratio = s.filter_truncate_ratio if s.filter_truncate_ratio > 0 else 2.5
+    return to_host_np(E.dogg_xy(x, s.width_a[:2], s.width_b[:2],
+                                s.width_a[2], m_exp=s.m_exp, n_exp=s.n_exp,
+                                mask=mask, truncate_ratio=ratio))
+
+
 _FILTER_HANDLERS = {
     S.GAUSS: handle_gauss, S.GGAUSS: handle_ggauss, S.DOG: handle_dog,
     S.DOGG: handle_dogg, S.LOG_DOG: handle_log, S.MEDIAN: handle_median,
     S.LOCAL_FLUCTUATIONS: handle_fluct,
     **dict.fromkeys((S.DILATION, S.EROSION, S.OPENING, S.CLOSING,
                      S.TOP_HAT_WHITE, S.TOP_HAT_BLACK), handle_morphology),
+    S.TEMPLATE_GAUSS: handle_template_gauss, S.DOGGXY: handle_doggxy,
 }
 
 
@@ -1187,6 +1090,114 @@ def handle_draw_spheres(s: Settings, x_np, mask_np, w, device,
             device=device)
 
 
+def _read_points_vox(s: Settings, w) -> np.ndarray:
+    """Coordinate files -> rounded integer voxel coordinates (N, 3) as
+    (ix, iy, iz).  IMOD-notation (parenthesized) rows are 1-based voxel
+    indices; plain rows are physical units
+    (``handlers_unsupported.cpp:1401-1423``)."""
+    pts = []
+    for fname in s.in_crds_file_names:
+        crds, _, _, in_vox = read_blob_coords_file(fname)
+        if in_vox:
+            crds = crds - 1.0
+        elif w[0] > 0:
+            crds = crds / np.asarray(w)[None, :]
+        pts.append(np.floor(crds + 0.5).astype(np.int64))
+    return (np.concatenate(pts, 0) if pts
+            else np.zeros((0, 3), np.int64))
+
+
+def handle_distance_points(s: Settings, x_np, mask_np, w, device,
+                           rep: Report) -> torch.Tensor:
+    """``HandleDistanceToPoints`` (``handlers_unsupported.cpp:1393-1466``),
+    the whole volume on ``device``; masked voxels keep the input."""
+    pts = _read_points_vox(s, w)
+    vw = w[0] if w[0] > 0 else 1.0
+    with stage("distance to points", rep):
+        return E.distance_to_points(x_np.shape, pts, vw, mask=mask_np,
+                                    background=x_np, device=device)
+
+
+def handle_distance_to_voxels(s: Settings, x_np, mask_np, w, device,
+                              rep: Report) -> np.ndarray:
+    """``HandleDistancePointsToFeature``
+    (``handlers_unsupported.cpp:1470-1551``): one distance a point,
+    written one a line; the image goes on unchanged."""
+    pts = _read_points_vox(s, w)
+    vw = w[0] if w[0] > 0 else 1.0
+    with stage("distance to voxels", rep):
+        dists = E.distance_points_to_feature(
+            x_np, pts, s.out_thresh_a_value, s.out_thresh_b_value, vw,
+            mask=mask_np, device=device)
+    with open(s.out_distances_file_name, "w") as fh:
+        for d in dists:
+            fh.write(f"{d}\n")
+    return x_np
+
+
+def handle_random_spheres(s: Settings, x_np, mask_np, w,
+                          rep: Report) -> np.ndarray:
+    """``HandleRandomSpheres`` (``handlers_unsupported.cpp:1569-1665``),
+    on the host: the centres, in physical units, to a file; the
+    occupancy image as the output."""
+    vw = w[0] if w[0] > 0 else 1.0
+    with stage("random spheres", rep):
+        centers, occ = E.random_spheres(
+            x_np, s.rand_crds_n, s.rand_crds_diameter / vw,
+            s.out_thresh_a_value, s.out_thresh_b_value,
+            seed=s.rand_crds_seed, mask=mask_np)
+    with open(s.out_crds_file_name, "w") as fh:
+        for ix, iy, iz in centers:
+            fh.write(f"{ix * vw} {iy * vw} {iz * vw}\n")
+    return occ
+
+
+def handle_blob_radial_intensity(s: Settings, x_np, mask_np, w,
+                                 rep: Report) -> np.ndarray:
+    """``HandleBlobRadialIntensity``
+    (``handlers_unsupported.cpp:162-455``), on the host: one
+    intensity-vs-radius profile file ``<base>_<i>.txt`` a blob; the image
+    goes on unchanged."""
+    vw = w[0] if w[0] > 0 else 1.0
+    crds_all, diams_all = [], []
+    for fname in s.in_crds_file_names:
+        crds, diams, _, in_vox = read_blob_coords_file(
+            fname, diameter_override=s.sphere_decals_diameter,
+            score_default=s.sphere_decals_foreground,
+            diameter_factor=s.sphere_decals_scale)
+        if in_vox:
+            crds = crds - 1.0
+        else:
+            crds = crds / vw
+            diams = diams / vw
+        crds_all.append(crds)
+        diams_all.append(diams)
+    crds = np.concatenate(crds_all, 0) if crds_all else np.zeros((0, 3))
+    diams = np.concatenate(diams_all, 0) if diams_all else np.zeros(0)
+    if mask_np is not None and len(crds):
+        keep = []
+        nzs, nys, nxs = mask_np.shape
+        for i, c in enumerate(crds):
+            ix, iy, iz = (int(np.floor(v + 0.5)) for v in c)
+            if 0 <= iz < nzs and 0 <= iy < nys and 0 <= ix < nxs \
+               and mask_np[iz, iy, ix] != 0:
+                keep.append(i)
+        crds, diams = crds[keep], diams[keep]
+    print(f"  creating intensity-vs-radius profiles for {len(crds)} "
+          f"blobs.", file=sys.stderr)
+    with stage("blob radial intensity", rep):
+        for i in range(len(crds)):
+            profile, _ = E.blob_radial_intensity(
+                x_np, crds[i], diams[i],
+                center_criteria=s.blob_profiles_center_criteria,
+                mask=mask_np)
+            fname = f"{s.blob_profiles_file_name_base}_{i + 1}.txt"
+            with open(fname, "w") as fh:
+                for ir, v in enumerate(profile):
+                    fh.write(f"{ir * vw} {v}\n")
+    return x_np
+
+
 def run(argv, device="cuda", report: Optional[Report] = None,
         mesh_devices=None) -> int:
     """Run filter_mrc on ``argv`` with the voxel work on ``device``
@@ -1199,20 +1210,10 @@ def run(argv, device="cuda", report: Optional[Report] = None,
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("visfd_tpu_torch: no CUDA device is visible; "
                            "filter_mrc runs its kernels on an NVIDIA GPU")
-    _check_flags(argv)
     s = S.parse_args(list(argv))
-    if s.mesh_devices and any(v in os.environ for v in _CLUSTER_ENV):
-        raise InputError(
-            f"Error: -mesh with {' or '.join(_CLUSTER_ENV)} set asks for a "
-            f"multi-process run, which visfd_tpu_torch does not run yet: "
-            f"one process drives every block (see ROADMAP.md)")
+    _check_settings(s)
     tv_types = (S.SURFACE_RIDGE, S.SURFACE_EDGE, S.CURVE)
     blob_tools = (S.BLOB_NONMAX_SUPPRESSION, S.BLOB_NONMAX_SUPERVISED_MULTI)
-    if s.filter_type not in tv_types + blob_tools + tuple(_FILTER_HANDLERS) \
-            + (S.LABEL_CONNECTED, S.NONE, S.FIND_EXTREMA, S.WATERSHED,
-               S.BLOB, S.DRAW_SPHERES):
-        raise InputError("Error: visfd_tpu_torch does not run this filter "
-                         "yet (see ROADMAP.md)")
     mesh = _cli_mesh(s, mesh_devices)
     rep = report if report is not None else Report(sys.stderr)
 
@@ -1322,6 +1323,14 @@ def run(argv, device="cuda", report: Optional[Report] = None,
         return 0
     elif s.filter_type == S.DRAW_SPHERES:
         out = handle_draw_spheres(s, x_np, mask_np, w, device, rep)
+    elif s.filter_type == S.DISTANCE_TO_POINTS:
+        out = handle_distance_points(s, x_np, mask_np, w, device, rep)
+    elif s.filter_type == S.DISTANCE_TO_VOXELS:
+        out = handle_distance_to_voxels(s, x_np, mask_np, w, device, rep)
+    elif s.filter_type == S.RANDOM_SPHERES:
+        out = handle_random_spheres(s, x_np, mask_np, w, rep)
+    elif s.filter_type == S.BLOB_RADIAL_INTENSITY:
+        out = handle_blob_radial_intensity(s, x_np, mask_np, w, rep)
     elif s.filter_type in tv_types:
         if min(x_np.shape) < 3:
             print("route: a side below 3 voxels takes the JAX CLI's XLA "

@@ -15,6 +15,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from visfd_tpu_torch.linalg import sym3
 from visfd_tpu_torch.ops import filters as F
 
 
@@ -129,6 +130,32 @@ def calc_hessian(
     if keep is not None:
         hess = hess * keep
     return grad, hess
+
+
+def diagonalize_hessian_image(
+    hess_flat: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    order: sym3.EigenOrder = sym3.EigenOrder.DECREASING_ABS,
+) -> torch.Tensor:
+    """Voxelwise eigendecomposition of a (Z, Y, X, 6) symmetric-tensor
+    field into [eivals(3), shoemake(3)] (``feature.hpp:1364-1471``;
+    default ordering there is DECREASING_ABS_EIVALS).  Masked-out
+    voxels are zeroed."""
+    out = sym3.diagonalize_flat_sym3(hess_flat, order=order)
+    if mask is not None:
+        out = out * (mask != 0)[..., None]
+    return out
+
+
+def undiagonalize_hessian_image(
+    diag: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Inverse voxelwise rebuild (``feature.hpp:1477-1514``)."""
+    out = sym3.undiagonalize_flat_sym3(diag)
+    if mask is not None:
+        out = out * (mask != 0)[..., None]
+    return out
 
 
 def score_hessian_planar(eivals: torch.Tensor) -> torch.Tensor:

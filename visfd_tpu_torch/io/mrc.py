@@ -236,7 +236,7 @@ def read_mrc(
     else:
         raw = f.read()
     header = _read_header(raw, signed_default)
-    body = raw[_HEADER_SIZE + header.nsymbt :]
+    body = memoryview(raw)[_HEADER_SIZE + header.nsymbt :]  # not a copy
 
     nx, ny, nz = header.nvoxels
     n = nx * ny * nz
@@ -320,9 +320,13 @@ def write_mrc(
     h.dmean = float(d64.mean()) if data.size else 0.0
     h.nsymbt = 0
 
-    buf = _write_header(h) + np.ascontiguousarray(data).astype("<f4").tobytes()
+    # the samples straight from the array's memory, not through copies
+    head = _write_header(h)
+    body = np.ascontiguousarray(data, dtype="<f4").reshape(-1).view(np.uint8)
     if isinstance(f, (str, os.PathLike)):
         with open(f, "wb") as fh:
-            fh.write(buf)
+            fh.write(head)
+            fh.write(body)
     else:
-        f.write(buf)
+        f.write(head)
+        f.write(body)

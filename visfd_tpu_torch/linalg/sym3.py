@@ -298,3 +298,20 @@ def diagonalize_flat_sym3(flat: torch.Tensor,
     v0 = torch.where((det < 0)[..., None], -ev[..., 0, :], ev[..., 0, :])
     ev = torch.cat([v0[..., None, :], ev[..., 1:, :]], dim=-2)
     return torch.cat([eivals, matrix_to_shoemake(ev)], dim=-1)
+
+
+def undiagonalize_flat_sym3(diag: torch.Tensor) -> torch.Tensor:
+    """Inverse of diagonalize_flat_sym3: rebuild the flat symmetric
+    matrix sum_d eival_d * v_d v_d^T from [eivals, shoemake]
+    (``eigen3_simple.hpp:348-388``)."""
+    eivals = diag[..., :3]
+    ev = shoemake_to_matrix(diag[..., 3:6])  # rows = eigenvectors
+    m = torch.einsum("...d,...di,...dj->...ij", eivals, ev, ev)
+    return full_to_flat(m)
+
+
+def flat_eigenvectors(diag: torch.Tensor):
+    """[eivals, shoemake] -> (eivals, row-eigenvector matrix), the
+    ``ConvertDiagFlatSym2Evects3`` unpacking
+    (``lin3_utils.hpp:566-585``)."""
+    return diag[..., :3], shoemake_to_matrix(diag[..., 3:6])

@@ -13,6 +13,10 @@ CUDA kernel on the card (no cuDNN, so no TF32), its shift-sum twin on
 the CPU; a ``ShardedVolume`` is convolved block by block, each block
 read with a halo as deep as the kernel.
 
+``conv1d_axis``, the 1-D pass along one axis, goes through ``blur3``
+too, with 1-tap kernels of 1.0 on the other two axes: those passes
+multiply by 1.0 and add zeros, which is exact.
+
 Convolution orientation matches the reference: g[i] = sum_j h[j]*f[i-j].
 """
 
@@ -24,7 +28,8 @@ import torch
 
 import numpy as np
 
-from visfd_tpu_torch.ops.blur_cuda import blur3, conv1d_axis
+from visfd_tpu_torch.ops import blur_cuda
+from visfd_tpu_torch.ops.blur_cuda import blur3
 from visfd_tpu_torch.ops.dense_cuda import conv3d_dense
 from visfd_tpu_torch.parallel.halo import haloed_block
 from visfd_tpu_torch.parallel.mesh import ShardedVolume, bmap
@@ -36,7 +41,25 @@ def _ones_denom_1d(kernel: torch.Tensor, n: int) -> torch.Tensor:
     """conv of an all-ones length-n signal with the kernel, zero padded:
     the per-axis normalisation denominator (``filter3d.hpp:1006-1040``)."""
     ones = torch.ones((1, 1, n), dtype=torch.float32, device=kernel.device)
-    return conv1d_axis(ones, kernel, axis=2)[0, 0]
+    return blur_cuda.conv1d_axis(ones, kernel, axis=2)[0, 0]
+
+
+def conv1d_axis(x, kernel, axis: int):
+    """1-D convolution g[i] = sum_j h[j] * f[i-j] along ``axis`` (0 = z,
+    1 = y, 2 = x) of a (Z, Y, X) volume, zero padded, not normalised;
+    the kernel's length is odd.  ``x`` may be a ShardedVolume."""
+    k = torch.as_tensor(np.asarray(kernel, np.float32))
+    if k.ndim != 1 or k.shape[0] % 2 == 0:
+        raise ValueError(f"conv1d_axis takes a 1-D kernel of odd length, "
+                         f"got {tuple(k.shape)}")
+    one = torch.ones(1, dtype=torch.float32)
+    kernels_xyz = [one, one, one]
+    kernels_xyz[2 - axis] = k
+    if isinstance(x, ShardedVolume):
+        # imported here: parallel.sharded imports this module
+        from visfd_tpu_torch.parallel.sharded import separable_conv3d_sharded
+        return separable_conv3d_sharded(x, kernels_xyz, normalize=False)
+    return separable_conv3d(x, kernels_xyz, normalize=False)
 
 
 def separable_conv3d(

@@ -18,11 +18,18 @@ def _is_between(x, a, b):
     return ((a <= x) & (x < b)) | ((b < x) & (x <= a))
 
 
+def div_rounded(v, d):
+    """v / d rounded once on every device: torch multiplies a CUDA tensor
+    divided by a Python number by the number's reciprocal, so the divisor
+    goes in as a tensor."""
+    return v / torch.tensor(d, dtype=v.dtype, device=v.device)
+
+
 def threshold2(x, thresh_a, thresh_b, out_a=0.0, out_b=1.0):
     """A linear ramp from 0 at thresh_a to 1 at thresh_b (decreasing when
     thresh_b < thresh_a), mapped onto [out_a, out_b]
     (``threshold.hpp:52-76``)."""
-    ramp = (x - thresh_a) / (thresh_b - thresh_a)
+    ramp = div_rounded(x - thresh_a, thresh_b - thresh_a)
     above = (x - thresh_a) * (thresh_b - thresh_a) > 0.0
     g = torch.where(_is_between(x, thresh_a, thresh_b), ramp,
                     torch.where(above, 1.0, 0.0))
@@ -35,8 +42,8 @@ def threshold4(x, t01a, t01b, t10a, t10b, out_a=0.0, out_b=1.0):
     (``threshold.hpp:113-166``); t01b == t10a == t10b is ``threshold2``."""
     if t01b == t10a and t01b == t10b:
         return threshold2(x, t01a, t01b, out_a, out_b)
-    ramp01 = (x - t01a) / (t01b - t01a)
-    ramp10 = (x - t10a) / (t10b - t10a)
+    ramp01 = div_rounded(x - t01a, t01b - t01a)
+    ramp10 = div_rounded(x - t10a, t10b - t10a)
     if t01b <= t10a:
         plateau = torch.where(_is_between(x, t01b, t10a), 1.0, 0.0)
     elif t10b <= t01a:
@@ -60,5 +67,5 @@ def select_intensity_range(x, range_a, range_b, out_a=0.0, out_b=1.0):
 def select_intensity_range_gauss(x, x0, sigma, out_a=0.0, out_b=1.0):
     """A soft band: an unnormalised Gaussian bump at x0
     (``threshold.hpp:237-258``)."""
-    xr = (x - x0) / sigma
+    xr = div_rounded(x - x0, sigma)
     return out_a + (out_b - out_a) * torch.exp(-0.5 * xr * xr)
