@@ -99,10 +99,13 @@ Phases:
    halfwidths 60 and 80 on (64, 512, 512), timed beside cuDNN ``conv3d``
    per axis (TF32 off), and against the fused kernel where both run;
    the per-axis mode at 8e's ``-gauss 21`` (halfwidth 55) on
-   (256, 512, 512) against its twin; the fused kernel at the blob ladder's halfwidths 6-11 at 1024 x 1024
-   x 512; the dense-correlation kernel at -ggauss's and -dogg's kernels
-   on (256, 512, 512) beside ``conv3d``; (8b) ``filter_mrc -w 19.6 -mask
-   M -blob minima B 160 280 1.01`` (the reference's ladder, 58 scales)
+   (256, 512, 512) against its twin; the fused kernel at the blob
+   ladder's halfwidths 6-11 at 1024 x 1024 x 512; the dense-correlation
+   kernel at -ggauss's and -dogg's kernels (7^3, 15^3) on (256, 512, 512)
+   beside ``conv3d``; each per-axis and dense time as a share of its
+   bound, beside the time of the design before (``BEFORE_MS``); (8b)
+   ``filter_mrc -w 19.6 -mask M -blob minima B 160 280 1.01`` (the
+   reference's ladder, 58 scales)
    on a seeded 1024 x 1024 x 512 phantom of 3000 dark spheres: the
    ``blur3`` launches against the ladder's 4 a scale, the spans (read,
    LoG ladder, extremum test, compaction, NMS, drawing, write), wall,
@@ -2453,6 +2456,15 @@ LADDER_HWS = (6, 7, 8, 9, 10, 11)  # the ladder's LoG halfwidths
 FILTER_ARGS = ("-gauss 21", "-ggauss 2", "-dog 2 4", "-dogg 2 4", "-log 2",
                "-fluct 3", "-median 2", "-erode 2", "-open 2")
 FILTER_EXACT = ("-median", "-erode", "-open")
+# the times of the designs the dense kernel (one output a thread) and
+# the per-axis blur mode (a tap load beside every FMA) had before their
+# redesign, on an H100 80GB HBM3 at 700 W (chip_smoke.py's own phases
+# 8a and 9a then), printed beside this run's; None: not timed then
+BEFORE_MS = {"blur3_axis hw 55": None, "blur3_axis hw 60": 2.698,
+             "blur3_axis hw 80": 3.599, "conv3d_dense 7^3": 14.482,
+             "conv3d_dense 15^3": 103.263,
+             "conv3d_dense (1, 21, 21)": 96.222,
+             "conv3d_dense 31^3": 48.054}
 KERNELS.update({
     # the per-axis mode of csrc/blur.cu (halfwidths above the fused tile;
     # the JAX package sends those to XLA's conv1d, visfd_tpu/ops/conv.py:96)
@@ -2496,13 +2508,29 @@ def _blur_library(x, ks):
         return v[0, 0]
 
 
+def _speed_line(label, ms, bound, card):
+    """``label: kernel t ms, s% of its bound, before: t0 ms``."""
+    before = BEFORE_MS.get(label)
+    was = "not timed" if before is None else f"{before:.3f} ms"
+    print(f"  {label}: {ms:.3f} ms, {100 * bound / ms:.1f}% of its "
+          f"{bound:.3f} ms bound; before the redesign {was} [{card}]",
+          flush=True)
+
+
+def _dense_mode(kshape):
+    """``7^3`` for a cube, ``(1, 21, 21)`` otherwise."""
+    return f"{kshape[0]}^3" if len(set(kshape)) == 1 else str(tuple(kshape))
+
+
 def phase_filter_kernels(chk, card, dev="cuda"):
     """8a: the per-axis blur mode against its twin at halfwidths 60 and 80
     on AXIS_SHAPE (and against the fused kernel where both run) and at
     8e's -gauss 21 (halfwidth 55) on FILTER_SHAPE, the fused
     kernel at the ladder's halfwidths at BLOB_SHAPE, the dense kernel at
     8e's -ggauss and -dogg kernels on FILTER_SHAPE: checks, CUDA-event
-    times, bounds and library calls.  Returns per-kernel stats."""
+    times, bounds and library calls; each per-axis and dense time also
+    as a share of its bound beside BEFORE_MS.  Returns per-kernel
+    stats."""
     import torch
     from visfd_tpu_torch.ops import blur_cuda, dense_cuda
     from visfd_tpu_torch.ops import kernels as K
@@ -2541,6 +2569,7 @@ def phase_filter_kernels(chk, card, dev="cuda"):
         print(f"  blur3_axis hw={hw}: kernel {ms:.3f} ms (3 launches), plain "
               f"{pms:.3f} ms, conv3d per axis {lms:.3f} ms, bound "
               f"{b[0]:.3f} ms ({b[1]}) [{card}]", flush=True)
+        _speed_line(f"blur3_axis hw {hw}", ms, b[0], card)
         if hw == AXIS_HWS[0]:
             stats["blur3_axis"] = {"err": err, "ms": ms, "plain_ms": pms,
                                    "bound_ms": b[0], "bound_by": b[1],
@@ -2574,6 +2603,10 @@ def phase_filter_kernels(chk, card, dev="cuda"):
     chk.check(ok, f"blur3_axis hw={hw} at {FILTER_SHAPE} against "
                   f"blur3_plain: max|d|={err:.3g}")
     stats["blur3_axis"]["err"] = worst(stats["blur3_axis"]["err"], err)
+    ms = cuda_ms(lambda: blur_cuda.blur3_axis(x, ks), 3)
+    b = bound_ms(8 * x.numel(),
+                 3 * BLUR_OPS_PER_TAP * (2 * hw + 1) * x.numel())
+    _speed_line(f"blur3_axis hw {hw}", ms, b[0], card)
     del x, got
     torch.cuda.empty_cache()
 
@@ -2632,8 +2665,9 @@ def phase_filter_kernels(chk, card, dev="cuda"):
         lms = cuda_ms(lambda: _conv3d_library(x, kf), 3)
         b = bound_ms(8 * nvox, 2 * k.size * nvox)
         print(f"  conv3d_dense {name}: kernel {ms:.3f} ms, plain {pms:.3f} "
-              f"ms, conv3d {lms:.3f} ms, bound {b[0]:.3f} ms ({b[1]}) "
-              f"[{card}]", flush=True)
+              f"ms, conv3d {lms:.3f} ms, bound {b[0]:.3f} ms ({b[1]}), "
+              f"{dense_cuda.dense_plan(k.shape)} [{card}]", flush=True)
+        _speed_line(f"conv3d_dense {_dense_mode(k.shape)}", ms, b[0], card)
         st = stats.setdefault("conv3d_dense", {"err": Err()})
         st["err"] = worst(st["err"], err)
         if name == "-ggauss 2":
@@ -2970,7 +3004,8 @@ def phase_exp_kernels(chk, card, dev="cuda"):
     """9a (kernels): the dense kernel's (1, 21, 21) mode (-doggxy's 2-D
     pass) at EXP_SHAPE and its 31^3 mode (-template-gauss's amplitude) on
     TEMPLATE_SLAB, each against its twin and cuDNN conv3d (TF32 off):
-    checks, CUDA-event times, bounds.  Returns per-kernel stats."""
+    checks, CUDA-event times, bounds, shares of the bound beside
+    BEFORE_MS.  Returns per-kernel stats."""
     import torch
     from visfd_tpu_torch.ops import dense_cuda
     print(f"== phase 9a (kernels): the dense kernel's (1, 21, 21) mode on "
@@ -3000,7 +3035,9 @@ def phase_exp_kernels(chk, card, dev="cuda"):
         b = bound_ms(8 * nvox, 2 * k.size * nvox)
         print(f"  {name}: kernel {ms:.3f} ms, plain {pms:.3f} ms, conv3d "
               f"{lms:.3f} ms, bound {b[0]:.3f} ms ({b[1]}), "
-              f"{100 * b[0] / ms:.1f}% [{card}]", flush=True)
+              f"{100 * b[0] / ms:.1f}%, "
+              f"{dense_cuda.dense_plan(k.shape)} [{card}]", flush=True)
+        _speed_line(f"conv3d_dense {_dense_mode(k.shape)}", ms, b[0], card)
         stats[name] = {"err": err, "ms": ms, "plain_ms": pms,
                        "bound_ms": b[0], "bound_by": b[1], "library_ms": lms}
         del x

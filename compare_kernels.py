@@ -3,6 +3,7 @@
 optionally of another checkout, on one NVIDIA GPU, on the same inputs.
 
     python3 compare_kernels.py [--other DIR] [--reps N]
+                               [--kernels all|main|filters]
 
 The inputs are built once, with code both checkouts share unchanged
 (the phantom, the plain blur twin, the Hessian kernel, the sort
@@ -25,9 +26,20 @@ threshold), so every checkout sees the same bits:
   ``dense`` (every voxel's tensor non-zero).
 
 Each checkout's ``visfd_tpu_torch`` is imported in turn (the other, this,
-this, the other) and times ``blur3`` at hw 4, ``tv_votes`` (hw 3,
-exponent 4) dense and sparse on every field, and
-``tv_votes_prepadded`` sparse on the block, ``hessian_principal``
+this, the other).  ``--kernels filters`` (or ``all``) times the dense
+correlation (``conv3d_dense``) at ``-ggauss 2``'s 7^3 and ``-dogg 2 4``'s
+15^3 kernels on (256, 512, 512), ``-doggxy 2 4 2``'s (1, 21, 21) on
+(512, 1024, 1024) and ``-template-gauss 3 6``'s 31^3 on (16, 512, 512);
+the other compiled widths, ``-fluct 2|3 -exponent 3``'s 3^3 and 5^3, on
+(256, 512, 512); two widths only the runtime instance takes,
+``-ggauss 3``'s 11^3 on (256, 512, 512) and ``-dogg 3 6``'s 23^3 on
+(16, 512, 512); and the blur's per-axis mode (``blur3_axis``) at hw 55
+on (256, 512, 512) and hw 60 and 80 on (64, 512, 512), seeded ``randn``
+inputs, and counts the output words of this checkout that differ in
+any bit from the other's first turn.  ``--kernels main`` (or ``all``)
+times ``blur3`` at hw 4, ``tv_votes`` (hw 3, exponent 4) dense and
+sparse on every field, and ``tv_votes_prepadded`` sparse on the block,
+``hessian_principal``
 (planar + v) at 67M and 537M voxels, ``hessian_principal_prepadded`` on
 the haloed block (and ``hessian_principal_block`` on the same block and
 halos, where the checkout has it), and ``sym3_score`` (stick) on the
@@ -188,11 +200,71 @@ def time_checkout(inp, reps):
     return out
 
 
+def filter_inputs(dev):
+    """Seeded inputs and kernels of the dense and per-axis modes, as
+    chip_smoke.py's phases 8a and 9a build them."""
+    import torch
+    from chip_smoke import _exp_kernels, _gauss_taps
+    from visfd_tpu_torch.ops import kernels as K
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    k31, _, k2 = _exp_kernels()
+    dense = {
+        "7^3": (MAIN_SHAPE, K.gen_gauss_kernel_3d((2.0,) * 3, 2.0, (3,) * 3)),
+        "15^3": (MAIN_SHAPE, K.dogg_kernel_3d((2.0,) * 3, (4.0,) * 3, 2.0,
+                                              2.0, -1.0, 0.03)[0]),
+        "(1, 21, 21)": (BIG, k2),
+        "31^3": ((16, 512, 512), k31),
+        "3^3": (MAIN_SHAPE, K.gen_gauss_kernel_3d((2.0,) * 3, 2.0, (1,) * 3)),
+        "5^3": (MAIN_SHAPE, K.gen_gauss_kernel_3d((2.0,) * 3, 2.0, (2,) * 3)),
+        "11^3 (runtime)": (MAIN_SHAPE, K.gen_gauss_kernel_3d((3.0,) * 3, 2.0,
+                                                            (5,) * 3)),
+        "23^3 (runtime)": ((16, 512, 512), K.dogg_kernel_3d(
+            (3.0,) * 3, (6.0,) * 3, 2.0, 2.0, -1.0, 0.03)[0])}
+    inp = {"x": {}, "dense": {}, "axis": {}}
+    for shape in (MAIN_SHAPE, BIG, (16, 512, 512), (64, 512, 512)):
+        inp["x"][shape] = torch.randn(shape, generator=gen, device=dev)
+    for name, (shape, k) in dense.items():
+        inp["dense"][name] = (shape, torch.as_tensor(
+            k, dtype=torch.float32, device=dev).flip(0, 1, 2).contiguous())
+    for hw, shape in ((55, MAIN_SHAPE), (60, (64, 512, 512)),
+                      (80, (64, 512, 512))):
+        ks = _gauss_taps(hw, dev)
+        ks[0] = ks[0] * torch.linspace(0.5, 1.5, 2 * hw + 1, device=dev)
+        inp["axis"][f"hw {hw}"] = (shape, ks)
+    return inp
+
+
+def time_filters(inp, reps):
+    """(times, outputs) of the dense kernel and the per-axis blur mode."""
+    from visfd_tpu_torch.ops import blur_cuda, dense_cuda
+    out, res = {}, {}
+    for name, (shape, kf) in inp["dense"].items():
+        x = inp["x"][shape]
+        res[f"conv3d_dense {name}"] = dense_cuda.conv3d_dense(x, kf)
+        out[f"conv3d_dense {name}"] = cuda_ms(
+            lambda: dense_cuda.conv3d_dense(x, kf), reps)
+    for name, (shape, ks) in inp["axis"].items():
+        x = inp["x"][shape]
+        res[f"blur3_axis {name}"] = blur_cuda.blur3_axis(x, ks)
+        out[f"blur3_axis {name}"] = cuda_ms(
+            lambda: blur_cuda.blur3_axis(x, ks), 2 * reps)
+    return out, res
+
+
+def bits_differ(a, b) -> int:
+    """Output words of a and b that differ in any bit."""
+    import torch
+    return int(torch.count_nonzero(a.view(torch.int32)
+                                   != b.view(torch.int32)))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", help="root of another checkout to time in "
                                     "turns with this one")
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--kernels", choices=("all", "main", "filters"),
+                    default="all")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -206,17 +278,32 @@ def main():
     other = os.path.abspath(args.other) if args.other else None
     load(ROOT)
     dev = torch.device("cuda")
-    inp = build_inputs(dev)
+    main_k = args.kernels in ("all", "main")
+    filt_k = args.kernels in ("all", "filters")
+    inp = build_inputs(dev) if main_k else None
+    finp = filter_inputs(dev) if filt_k else None
     occ = {k: occupancy(inp[k], HW) for k in ("real", "planes", "dense",
-                                              "block")}
+                                              "block")} if main_k else {}
     turns = [other, ROOT, ROOT, other] if other else [ROOT, ROOT]
+    first = None  # the first turn's outputs of the filter kernels
     for root in turns:
         load(root)
         from visfd_tpu_torch import _cuda_build as cb
         cb.library()
-        t = time_checkout(inp, args.reps)
+        t = time_checkout(inp, args.reps) if main_k else {}
+        differ = {}
+        if filt_k:
+            ft, res = time_filters(finp, args.reps)
+            t.update(ft)
+            if first is None:
+                first = res
+            else:
+                differ = {k: bits_differ(v, first[k])
+                          for k, v in res.items()}
+            del res
         label = "this" if root == ROOT else "other"
-        print(json.dumps({"checkout": label, "root": root, "ms": t}),
+        print(json.dumps({"checkout": label, "root": root, "ms": t,
+                          "words_differing_from_first_turn": differ}),
               flush=True)
     for k, v in occ.items():
         print(f"occupancy {k}: {json.dumps(v)}")

@@ -73,12 +73,15 @@ def _close_blur(got, want):
 
 
 @pytest.mark.parametrize("shape", [(12, 20, 33), (3, 70, 1030),
-                                   (70, 2, 41)])
-@pytest.mark.parametrize("hws", [(60, 60, 60), (80, 57, 3), (120, 30, 200)])
+                                   (70, 2, 41), (300, 5, 40)])
+@pytest.mark.parametrize("hws", [(60, 60, 60), (80, 57, 3), (120, 30, 200),
+                                 (55, 55, 55), (55, 60, 80)])
 def test_blur3_axis_mode_matches_twin(cuda, hws, shape):
     """The per-axis mode (halfwidths no fused tile holds, taps reaching
-    far past the volume, a side of 2) against blur3_plain; blur3 takes
-    it by shape alone, and it counts its own launches."""
+    far past the volume, a side of 2, a z line of two chunks of taps)
+    against blur3_plain; blur3 takes it by shape alone, and it counts its
+    own launches.  A haloed block's interior equals the whole volume's
+    bits."""
     from visfd_tpu_torch.ops import blur_cuda
     rng = _rng(8)
     x = rng.normal(size=shape).astype(np.float32)
@@ -91,6 +94,11 @@ def test_blur3_axis_mode_matches_twin(cuda, hws, shape):
     assert blur_cuda.blur3_axis.launches == a0 + 3
     _close_blur(got.cpu(), blur3_plain(torch.tensor(x),
                                        [torch.tensor(k) for k in ks]))
+    hx, hy, hz = hws
+    sub, (z0, z1, y0, y1) = _haloed_block(x, hz, hy)
+    blk = blur3(torch.tensor(sub, device=cuda), ks).cpu().numpy()
+    assert np.array_equal(blk[hz:hz + z1 - z0, hy:hy + y1 - y0],
+                          got.cpu().numpy()[z0:z1, y0:y1])
 
 
 def test_blur3_axis_mode_equals_fused_kernel(cuda):
@@ -108,18 +116,45 @@ def test_blur3_axis_mode_equals_fused_kernel(cuda):
                                atol=1e-7 * float(a.abs().max()))
 
 
-@pytest.mark.parametrize("hs", [(1, 1, 1), (3, 2, 4), (5, 5, 5), (0, 6, 2)])
-def test_conv3d_dense_kernel_matches_twin(cuda, hs):
+def _haloed_block(x, hz, hy):
+    """(the block of planes z0:z1 and rows y0:y1 of x, its middle half,
+    read with a halo hz planes and hy rows deep, zeros beyond the
+    volume; (z0, z1, y0, y1))."""
+    nz, ny, nx = x.shape
+    z0, y0 = (nz + 2) // 4, (ny + 2) // 4
+    z1, y1 = max(z0 + 1, nz - z0), max(y0 + 1, ny - y0)
+    sub = np.zeros((z1 - z0 + 2 * hz, y1 - y0 + 2 * hy, nx), np.float32)
+    lo_z, lo_y = max(0, z0 - hz), max(0, y0 - hy)
+    hi_z, hi_y = min(nz, z1 + hz), min(ny, y1 + hy)
+    sub[lo_z - (z0 - hz):hi_z - (z0 - hz), lo_y - (y0 - hy):hi_y - (y0 - hy)] \
+        = x[lo_z:hi_z, lo_y:hi_y]
+    return sub, (z0, z1, y0, y1)
+
+
+# (hx, hy, hz): every compiled instance of csrc/conv3d.cu (3^3, 5^3, 7^3,
+# 15^3, (1, 21, 21), 31^3), the runtime one with its taps in shared
+# memory (sides of 1 among them, a row longer than the tile), with its
+# taps through L1 (41^3), and in bands of kernel rows ((1, 241, 241))
+@pytest.mark.parametrize("hs", [(1, 1, 1), (2, 2, 2), (3, 3, 3), (7, 7, 7),
+                                (10, 10, 0), (15, 15, 15), (3, 2, 4),
+                                (5, 5, 5), (0, 6, 2), (120, 0, 0),
+                                (20, 20, 20), (120, 120, 0)])
+@pytest.mark.parametrize("shape", [(9, 21, 45), (5, 7, 130), (1, 13, 1)])
+def test_conv3d_dense_kernel_matches_twin(cuda, hs, shape):
     """The dense correlation kernel against its shift-sum twin (an
-    asymmetric kernel, sides that differ, NaN in the input), and a
-    haloed block's interior equal to the whole volume's bit for bit."""
+    asymmetric kernel, sides that differ and are no multiple of the
+    tile, volumes thinner than the kernel, a side of 1, NaN in the
+    input), and a haloed block's interior equal to the whole volume's
+    bit for bit."""
     from visfd_tpu_torch.ops import dense_cuda as DC
     rng = _rng(10)
     hx, hy, hz = hs
-    x = rng.normal(size=(9, 21, 45)).astype(np.float32)
-    x[4, 10, 20] = np.nan
+    x = rng.normal(size=shape).astype(np.float32)
+    x[tuple(n // 2 for n in shape)] = np.nan
     k = rng.normal(size=(2 * hz + 1, 2 * hy + 1, 2 * hx + 1)).astype(
         np.float32)
+    plan = DC.dense_plan(k.shape)
+    assert (plan.variant > 0) == (k.shape in DC.COMPILED)
     n0 = DC.conv3d_dense.launches
     got = DC.conv3d_dense(torch.tensor(x, device=cuda), k)
     torch.cuda.synchronize()
@@ -128,15 +163,10 @@ def test_conv3d_dense_kernel_matches_twin(cuda, hs):
     g = got.cpu().numpy()
     assert np.array_equal(np.isnan(g), np.isnan(want))
     fin = np.isfinite(want)
-    np.testing.assert_allclose(g[fin], want[fin], rtol=1e-5,
-                               atol=1e-6 * np.abs(want[fin]).max())
-    # a block (planes 3..6, rows 5..14) read with its halo
-    z0, z1, y0, y1 = 3, 7, 5, 15
-    sub = np.zeros((z1 - z0 + 2 * hz, y1 - y0 + 2 * hy, 45), np.float32)
-    lo_z, lo_y = max(0, z0 - hz), max(0, y0 - hy)
-    hi_z, hi_y = min(9, z1 + hz), min(21, y1 + hy)
-    sub[lo_z - (z0 - hz):hi_z - (z0 - hz), lo_y - (y0 - hy):hi_y - (y0 - hy)] \
-        = x[lo_z:hi_z, lo_y:hi_y]
+    if fin.any():  # a volume the kernel spans has NaN everywhere
+        np.testing.assert_allclose(g[fin], want[fin], rtol=1e-5,
+                                   atol=1e-6 * np.abs(want[fin]).max())
+    sub, (z0, z1, y0, y1) = _haloed_block(x, hz, hy)
     blk = DC.conv3d_dense(torch.tensor(sub, device=cuda), k).cpu().numpy()
     inner = blk[hz:hz + z1 - z0, hy:hy + y1 - y0]
     assert np.array_equal(inner, g[z0:z1, y0:y1], equal_nan=True)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time variants of the port's CUDA kernels on one NVIDIA GPU.
 
-    python3 tune_kernels.py [--reps N]
+    python3 tune_kernels.py [--reps N] [--kernels main|filters]
 
 Each entry of VARIANTS edits a copy of ``visfd_tpu_torch/csrc`` (exact
 text replacements), which is built with the package's nvcc flags into a
@@ -14,8 +14,11 @@ one block of the -mesh run beside its halo slabs and ``sym3_score``
 (stick) on the votes of the ``-tv-best 0.05`` field.  Every variant's
 outputs must equal the first variant's bit for bit (an edit may change
 the schedule, not the arithmetic), and sparse voting must equal
-dense.  One JSON line
-per variant and turn; the last line says whether every check held.
+dense.  ``--kernels filters`` takes FILTER_VARIANTS instead and times
+the dense correlation and the blur's per-axis mode on
+``compare_kernels.filter_inputs``, each variant's outputs checked bit for
+bit against the first's.  One JSON line per variant and turn; the last
+line says whether every check held.
 """
 
 from __future__ import annotations
@@ -55,6 +58,17 @@ VARIANTS = {
                               "__launch_bounds__(kThreads, 4)")],
     "eigen 5 blocks an SM": [("eigen.cu", "__launch_bounds__(kThreads, 2)",
                               "__launch_bounds__(kThreads, 5)")],
+}
+
+FILTER_VARIANTS = {
+    "as is": [],
+    # every kernel shape through the runtime instance, with the plan the
+    # compiled one gets (the same shared bytes, stages and band)
+    "dense runtime instance": [("conv3d.cu", "  switch (variant) {",
+                                "  switch (0) {")],
+    "axis rotations unrolled 2": [
+        ("blur.cu", "    for (; u + 8 * (kAxG + 1) <= nc;",
+         "#pragma unroll 2\n    for (; u + 8 * (kAxG + 1) <= nc;")],
 }
 
 
@@ -98,9 +112,37 @@ def load(path, cb):
     return lib
 
 
+def tune_filters(cb, reps):
+    """Time FILTER_VARIANTS in turns (first to last, last to first) on
+    the dense and per-axis inputs; True when every variant's outputs
+    equal the first's bit for bit."""
+    import torch
+    with tempfile.TemporaryDirectory() as tmp:
+        builds = {n: build(n, e, cb, tmp)
+                  for n, e in FILTER_VARIANTS.items()}
+        libs = {n: load(link(n, *b, cb), cb) for n, b in builds.items()}
+        inp = CK.filter_inputs(torch.device("cuda"))
+        names = list(FILTER_VARIANTS)
+        ref, ok = None, True
+        for order in (names, names[::-1]):
+            for name in order:
+                cb.library = (lambda lib: lambda: lib)(libs[name])
+                t, res = CK.time_filters(inp, reps)
+                ref = res if ref is None else ref
+                differ = {k: CK.bits_differ(v, ref[k])
+                          for k, v in res.items()}
+                ok = ok and not any(differ.values())
+                del res
+                print(json.dumps({"variant": name, "ms": t,
+                                  "words differing from the first "
+                                  "variant": differ}), flush=True)
+    return ok
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--kernels", choices=("main", "filters"), default="main")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -115,6 +157,11 @@ def main():
                          text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
     print(f"card: {card}", flush=True)
+    if args.kernels == "filters":
+        ok = tune_filters(cb, args.reps)
+        print(f"[{card}]")
+        print(json.dumps({"ok": ok}))
+        return 0 if ok else 1
     with tempfile.TemporaryDirectory() as tmp:
         builds = {n: build(n, e, cb, tmp) for n, e in VARIANTS.items()}
         libs = {n: load(link(n, *b, cb), cb) for n, b in builds.items()}

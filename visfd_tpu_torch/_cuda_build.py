@@ -45,8 +45,10 @@ _SIGNATURES = {
     "visfd_blur3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # in, out, taps, hw, nz, ny, nx, axis (0: z, 1: y, 2: x), stream
     "visfd_blur_axis": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # in, out, flipped taps (kz, ky, kx), hx, hy, hz, nz, ny, nx, stream
-    "visfd_conv3d": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # in, out, flipped taps (kz, ky, kx; rows padded to a multiple of 4),
+    # kx, ky, kz, nz, ny, nx, variant, smem, stages, band, smem_taps,
+    # stream
+    "visfd_conv3d": [_P, _P, _P] + [_I] * 11 + [_P],
     # blur, out, nz, ny, nx, sigma^2, decreasing, formula, want_v, stream
     "visfd_hessian_principal": [_P, _P, _I, _I, _I, _F, _I, _I, _I, _P],
     # block and its plane and row strides; the z halo planes below and

@@ -35,15 +35,23 @@
 // memory (ops/blur_cuda.smem_plan returns None; the JAX package sends
 // kernels longer than 61 taps to XLA's conv1d, visfd_tpu/ops/conv.py:96):
 // one launch per axis, x then y then z, each a 1-D convolution with a
-// runtime halfwidth of any size.  A block owns a segment of one line
-// (x) or of 32 neighbouring lines (y, z) and walks the sources its
-// segment reaches, [s0 - h, s0 + seg + h), in chunks staged in shared
-// memory (zeros outside the volume); each output adds, per chunk, the
-// taps whose sources it holds, so every output sums its 2h+1 taps in
-// ascending order of the source, padded samples included as zeros: the
-// fused kernel's sums, bit for bit, and a -mesh block's interior gets
-// the single-device bits.  Bound: operations, 2(2h+1) per voxel and
-// axis (at h = 60, 726 a voxel against 8 bytes moved per pass).
+// runtime halfwidth of any size.  Bound: operations, 2(2h+1) per voxel
+// and axis (at h = 60, 726 a voxel against 8 bytes moved per pass), so
+// a tap is a warp-uniform broadcast and each source feeds 16 outputs
+// from a register.  A block owns 32 lines (the lanes) and a segment of
+// 128 outputs along the axis, 16 adjacent ones a thread; it stages the
+// sources the segment reaches, [s0 - h, s0 + 128 + h), and the taps in
+// reverse, in chunks of 216 taps in shared memory (zeros outside the
+// volume), a source row of the 32 lines at a time.  The x pass stages
+// its 32 rows transposed (and stores its outputs back through shared
+// memory), so that every pass has the lanes on 32 lines and the tap
+// index the same across the warp.  A thread walks its sources in
+// ascending order through a window of 24 registers, rotated in place:
+// each step of 8 taps loads the next 8 sources and two float4s of taps
+// for 128 FMAs.  So every output
+// sums its 2h+1 taps in ascending order of the source from 0.0f, padded
+// samples included as zeros: the fused kernel's sums, bit for bit, and
+// a -mesh block's interior gets the single-device bits.
 //
 // Invariants.  Every output voxel sums, per axis, all 2h+1 taps in
 // ascending order of the source (x, then y, then z; the TPU kernel
@@ -54,6 +62,8 @@
 
 #include <cuda_runtime.h>
 #include <cstdint>
+
+#include "cp_async.cuh"
 
 namespace {
 
@@ -315,97 +325,198 @@ extern "C" int visfd_blur3(const void* in, void* out, const void* taps,
 
 namespace {
 
-constexpr int kAxSegX = 1024;   // x: outputs of a line per block
-constexpr int kAxChunkX = 4096;  // x: sources staged per chunk
-constexpr int kAxSegS = 64;     // y, z: outputs of each line per block
-constexpr int kAxChunkS = 128;  // y, z: sources staged per chunk and line
-constexpr int kAxRows = 8;      // y, z: rows of threads (32 lines wide)
+constexpr int kAxWarps = 8;
+constexpr int kAxLd = 33;  // stride of a staged source row
+constexpr int kAxG = 2;    // a thread's groups of 8 adjacent outputs
+constexpr int kAxR = 8 * kAxG;           // adjacent outputs a thread
+constexpr int kAxSeg = kAxR * kAxWarps;  // outputs of each line a block
+// taps a staged chunk: a multiple of a rotation of the window
+// (8 (kAxG + 1)) whose sources, chunk + kAxSeg rows of 33 floats, stay
+// within 48 KB
+constexpr int kAxChunk = 216;
 
-// along x: line = blockIdx.x (a (z, y) row), outputs s0 .. s0 + 1023
-__global__ void __launch_bounds__(256)
-    blur_axis_x_kernel(const float* __restrict__ in, float* __restrict__ out,
-                       const float* __restrict__ taps, int h, int nx) {
-  __shared__ float s[kAxChunkX];
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * nx;
-  const int s0 = blockIdx.y * kAxSegX;
-  const int lo = s0 - h;                             // first source
-  const int hi = min(s0 + kAxSegX, nx) - 1 + h;      // last source
-  float acc[kAxSegX / 256];
+// 8 taps of the window walk.  The window holds kAxG + 1 groups of 8
+// sources; logical group j (sources 8j .. 8j + 7 past the thread's first
+// output's tap u) is physical group (st + j) % (kAxG + 1).  Output r of
+// group g takes tap k from source r + k of logical group g, or of g + 1
+// past 8.  kTail: only the first nt taps.
+template <int st, bool kTail>
+__device__ __forceinline__ void axis_step(float (&acc)[kAxG][8],
+                                          const float (&w)[kAxG + 1][8],
+                                          const float* t, int nt) {
+  const float4 t0 = *reinterpret_cast<const float4*>(t);
+  const float4 t1 = *reinterpret_cast<const float4*>(t + 4);
+  const float tv[8] = {t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z, t1.w};
 #pragma unroll
-  for (int q = 0; q < kAxSegX / 256; ++q) acc[q] = 0.0f;
-  for (int c0 = lo; c0 <= hi; c0 += kAxChunkX) {
-    const int c1 = min(c0 + kAxChunkX, hi + 1);      // chunk [c0, c1)
-    __syncthreads();  // the last chunk's readers are done
-    for (int j = c0 + threadIdx.x; j < c1; j += 256) {
-      s[j - c0] = j >= 0 && j < nx ? in[base + j] : 0.0f;
+  for (int k = 0; k < 8; ++k) {
+    if (!kTail || k < nt) {
+#pragma unroll
+      for (int g = 0; g < kAxG; ++g) {
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const int j = g + (r + k >= 8 ? 1 : 0);
+          acc[g][r] = fmaf(tv[k], w[(st + j) % (kAxG + 1)][(r + k) & 7],
+                           acc[g][r]);
+        }
+      }
     }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < kAxSegX / 256; ++q) {
-      const int i = s0 + threadIdx.x + 256 * q;
-      const int a = max(c0, i - h), b = min(c1, i + h + 1);
-      float v = acc[q];
-      for (int j = a; j < b; ++j) v = fmaf(__ldg(taps + h + i - j), s[j - c0], v);
-      acc[q] = v;
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < kAxSegX / 256; ++q) {
-    const int i = s0 + threadIdx.x + 256 * q;
-    if (i < nx) out[base + i] = acc[q];
   }
 }
 
-// along y or z of a (outer, n, inner) layout: lines inner0 .. inner0 + 31
-// of outer index blockIdx.z, outputs s0 .. s0 + 63 along the axis
-__global__ void __launch_bounds__(256)
-    blur_axis_strided_kernel(const float* __restrict__ in,
-                             float* __restrict__ out,
-                             const float* __restrict__ taps, int h, int n,
-                             int64_t inner) {
-  __shared__ float s[kAxChunkS * 32];
-  const int lx = threadIdx.x, ly = threadIdx.y;
-  const int64_t line = static_cast<int64_t>(blockIdx.x) * 32 + lx;
-  const bool live = line < inner;
-  const int64_t base = static_cast<int64_t>(blockIdx.z) * n * inner + line;
-  const int s0 = blockIdx.y * kAxSegS;
-  const int lo = s0 - h;
-  const int hi = min(s0 + kAxSegS, n) - 1 + h;
-  float acc[kAxSegS / kAxRows];
+// steps st .. kAxG of one rotation of the window, from tap u (chunk-
+// relative; sp: the thread's first source row)
+template <int st>
+__device__ __forceinline__ void axis_rotation(float (&acc)[kAxG][8],
+                                              float (&w)[kAxG + 1][8],
+                                              const float* sp,
+                                              const float* s_t, int u) {
+  if constexpr (st <= kAxG) {
 #pragma unroll
-  for (int q = 0; q < kAxSegS / kAxRows; ++q) acc[q] = 0.0f;
-  for (int c0 = lo; c0 <= hi; c0 += kAxChunkS) {
-    const int c1 = min(c0 + kAxChunkS, hi + 1);
-    __syncthreads();
-    for (int j = c0 + ly; j < c1; j += kAxRows) {
-      s[(j - c0) * 32 + lx] =
-          live && j >= 0 && j < n ? in[base + static_cast<int64_t>(j) * inner]
-                                  : 0.0f;
+    for (int r = 0; r < 8; ++r) {
+      w[(st + kAxG) % (kAxG + 1)][r] = sp[(u + 8 * kAxG + r) * kAxLd];
     }
-    __syncthreads();
+    axis_step<st, false>(acc, w, s_t + u, 8);
+    axis_rotation<st + 1>(acc, w, sp, s_t, u + 8);
+  }
+}
+
+// One 1-D convolution of 32 lines a block, outputs s0 .. s0 + kAxSeg - 1
+// of each (kAxR adjacent ones a thread, warp w's from s0 + kAxR w).
+// kRows (the x pass): line blockIdx.x * 32 + l is row l of a (lines, n)
+// layout, staged transposed; else the lines are (blockIdx.z,
+// blockIdx.x * 32 + lane) of an (outer, n, inner) layout.
+template <bool kRows>
+__global__ void __launch_bounds__(kAxWarps * 32)
+    blur_axis_kernel(const float* __restrict__ in, float* __restrict__ out,
+                     const float* __restrict__ taps, int h, int n,
+                     int64_t inner, int64_t lines) {
+  __shared__ float s[(kAxChunk + kAxSeg) * kAxLd];  // [source][line]
+  __shared__ __align__(16) float s_t[kAxChunk];     // the chunk's taps
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int s0 = blockIdx.y * kAxSeg;
+  const int nu = 2 * h + 1;
+  const int64_t line0 = static_cast<int64_t>(blockIdx.x) * 32;
+  // the first source of output s0 is s0 - h; output s0 + kAxR w + r
+  // takes tap u from source s0 - h + kAxR w + r + u
+  const float* col = nullptr;  // kRows == false: this lane's line
+  bool col_ok = false;
+  if constexpr (!kRows) {
+    col_ok = line0 + lane < inner;
+    col = in + blockIdx.z * static_cast<int64_t>(n) * inner +
+          (col_ok ? line0 + lane : 0);
+  }
+  float acc[kAxG][8], w[kAxG + 1][8];
 #pragma unroll
-    for (int q = 0; q < kAxSegS / kAxRows; ++q) {
-      const int i = s0 + ly + kAxRows * q;
-      const int a = max(c0, i - h), b = min(c1, i + h + 1);
-      float v = acc[q];
-      for (int j = a; j < b; ++j) {
-        v = fmaf(__ldg(taps + h + i - j), s[(j - c0) * 32 + lx], v);
+  for (int g = 0; g < kAxG; ++g) {
+#pragma unroll
+    for (int r = 0; r < 8; ++r) acc[g][r] = 0.0f;
+  }
+
+  // warps whose outputs all lie past the line stage but compute nothing
+  const bool busy = s0 + kAxR * warp < n;
+  for (int uc = 0; uc < nu; uc += kAxChunk) {
+    const int ue = min(uc + kAxChunk, nu);
+    const int nt8 = (ue - uc + 7) & ~7;
+    const int npos = nt8 + kAxSeg;  // sources this chunk reads
+    __syncthreads();  // the last chunk's readers are done
+    const int p0 = s0 - h + uc;     // source of staged row 0
+    if constexpr (kRows) {
+      for (int l = warp; l < 32; l += kAxWarps) {
+        const bool lok = line0 + l < lines;
+        const float* src = in + (lok ? (line0 + l) * n : 0);
+        for (int q = lane; q < npos; q += 32) {
+          const int gp = p0 + q;
+          const bool ok = lok && gp >= 0 && gp < n;
+          visfd::cp_async4(&s[q * kAxLd + l], ok ? src + gp : in, ok);
+        }
       }
-      acc[q] = v;
+    } else {
+      for (int q = warp; q < npos; q += kAxWarps) {
+        const int gp = p0 + q;
+        const bool ok = col_ok && gp >= 0 && gp < n;
+        visfd::cp_async4(&s[q * kAxLd + lane], ok ? col + gp * inner : in,
+                         ok);
+      }
+    }
+    // tap u of the walk is taps[2h - u]; zeros past the last
+    for (int t = threadIdx.x; t < nt8; t += kAxWarps * 32) {
+      const bool ok = uc + t < nu;
+      visfd::cp_async4(&s_t[t], ok ? taps + nu - 1 - uc - t : taps, ok);
+    }
+    visfd::cp_async_commit();
+    visfd::cp_async_wait<0>();
+    __syncthreads();
+    if (!busy) continue;
+    // this thread's sources from staged row kAxR w
+    const float* sp = s + kAxR * warp * kAxLd + lane;
+    if (uc == 0) {
+#pragma unroll
+      for (int j = 0; j < kAxG; ++j) {
+#pragma unroll
+        for (int r = 0; r < 8; ++r) w[j][r] = sp[(8 * j + r) * kAxLd];
+      }
+    }
+    // whole rotations, then single steps with the window moved down
+    // (in the chunk's last 8 kAxG taps or fewer), the last one 1-8 taps
+    int u = 0;
+    const int nc = ue - uc;
+    for (; u + 8 * (kAxG + 1) <= nc; u += 8 * (kAxG + 1)) {
+      axis_rotation<0>(acc, w, sp, s_t, u);
+    }
+    for (; u < nc; u += 8) {
+#pragma unroll
+      for (int r = 0; r < 8; ++r) w[kAxG][r] = sp[(u + 8 * kAxG + r) * kAxLd];
+      if (u + 8 <= nc) {
+        axis_step<0, false>(acc, w, s_t + u, 8);
+      } else {
+        axis_step<0, true>(acc, w, s_t + u, nc - u);
+      }
+#pragma unroll
+      for (int j = 0; j < kAxG; ++j) {
+#pragma unroll
+        for (int r = 0; r < 8; ++r) w[j][r] = w[j + 1][r];
+      }
     }
   }
-  if (!live) return;
+
+  if constexpr (kRows) {
+    // transpose through shared memory: a warp then stores a row's
+    // outputs, adjacent lanes on adjacent addresses
+    __syncthreads();
 #pragma unroll
-  for (int q = 0; q < kAxSegS / kAxRows; ++q) {
-    const int i = s0 + ly + kAxRows * q;
-    if (i < n) out[base + static_cast<int64_t>(i) * inner] = acc[q];
+    for (int g = 0; g < kAxG; ++g) {
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        s[(kAxR * warp + 8 * g + r) * kAxLd + lane] = acc[g][r];
+      }
+    }
+    __syncthreads();
+    for (int l = warp; l < 32; l += kAxWarps) {
+      if (line0 + l >= lines) break;
+      float* dst = out + (line0 + l) * n;
+      for (int i = lane; i < kAxSeg; i += 32) {
+        if (s0 + i < n) dst[s0 + i] = s[i * kAxLd + l];
+      }
+    }
+  } else {
+    if (!col_ok) return;
+    float* dst = out + (col - in);
+#pragma unroll
+    for (int g = 0; g < kAxG; ++g) {
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int i = s0 + kAxR * warp + 8 * g + r;
+        if (i < n) dst[static_cast<int64_t>(i) * inner] = acc[g][r];
+      }
+    }
   }
 }
 
 }  // namespace
 
 // One 1-D convolution along ``axis`` (0: z, 1: y, 2: x) of a (nz, ny, nx)
-// volume; taps of length 2h+1, g[i] = sum_j taps[h + i - j] f[j].
+// volume, g[i] = sum_j taps[h + i - j] f[j] over the 2h + 1 sources j
+// from i - h, in ascending j.
 extern "C" int visfd_blur_axis(const void* in, void* out, const void* taps,
                                int h, int nz, int ny, int nx, int axis,
                                void* stream) {
@@ -413,18 +524,22 @@ extern "C" int visfd_blur_axis(const void* in, void* out, const void* taps,
   const float* src = static_cast<const float*>(in);
   float* dst = static_cast<float*>(out);
   const float* k = static_cast<const float*>(taps);
+  const dim3 block(kAxWarps * 32);
   if (axis == 2) {
-    const dim3 grid(nz * ny, (nx + kAxSegX - 1) / kAxSegX);
-    blur_axis_x_kernel<<<grid, 256, 0, st>>>(src, dst, k, h, nx);
+    const int64_t lines = static_cast<int64_t>(nz) * ny;
+    const dim3 grid(static_cast<unsigned>((lines + 31) / 32),
+                    (nx + kAxSeg - 1) / kAxSeg);
+    blur_axis_kernel<true><<<grid, block, 0, st>>>(src, dst, k, h, nx, 1,
+                                                   lines);
   } else {
     const int n = axis == 1 ? ny : nz;
     const int outer = axis == 1 ? nz : 1;
     const int64_t inner = axis == 1 ? static_cast<int64_t>(nx)
                                     : static_cast<int64_t>(ny) * nx;
     const dim3 grid(static_cast<unsigned>((inner + 31) / 32),
-                    (n + kAxSegS - 1) / kAxSegS, outer);
-    blur_axis_strided_kernel<<<grid, dim3(32, kAxRows), 0, st>>>(
-        src, dst, k, h, n, inner);
+                    (n + kAxSeg - 1) / kAxSeg, outer);
+    blur_axis_kernel<false><<<grid, block, 0, st>>>(src, dst, k, h, n,
+                                                    inner, inner);
   }
   return static_cast<int>(cudaGetLastError());
 }

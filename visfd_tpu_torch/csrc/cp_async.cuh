@@ -1,5 +1,6 @@
 // cp.async helpers shared by the kernels that stage tiles in shared
-// memory (tv.cu, eigen.cu): 4-byte copies, zero-filled when not valid.
+// memory (tv.cu, eigen.cu, conv3d.cu, blur.cu's per-axis mode): 4-byte
+// copies, zero-filled when not valid, and aligned 16-byte copies.
 #pragma once
 
 namespace visfd {
@@ -10,6 +11,13 @@ __device__ __forceinline__ void cp_async4(void* smem, const float* gmem,
   const int n = valid ? 4 : 0;  // 0: fill with zeros, read nothing
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
                "l"(gmem), "r"(n));
+}
+
+// both addresses 16-byte aligned
+__device__ __forceinline__ void cp_async16(void* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -131,8 +131,8 @@ def blur3_axis(x: torch.Tensor, kernels_xyz: Sequence) -> torch.Tensor:
                          f"tensor, got {x.dtype} {tuple(x.shape)} on "
                          f"{x.device}")
     nz, ny, nx = x.shape
-    if max(nz * ny, nx, ny, nz) >= 2 ** 31 or nz > 65535 or \
-            -(-ny * nx // 32) >= 2 ** 31:
+    if -(-nz * ny // 32) >= 2 ** 31 or max(nx, ny, nz) > 128 * 65535 or \
+            nz > 65535 or -(-ny * nx // 32) >= 2 ** 31:
         raise ValueError(f"blur3_axis: {tuple(x.shape)} exceeds the "
                          f"kernel's grid")
     src = x.contiguous()
