@@ -2,6 +2,12 @@
 """Smoke test of the PyTorch port (visfd_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --nccl    # 2+ cards: the build and phase 11
+
+Phase 11 (``--nccl``, ``phase_cards``): ``-mesh`` over NCCL with one
+card a rank (two ranks, then one on every card), 5c's command at 537M
+and 6c's ``-connect``, each against the one-process ``-mesh`` over the
+same cards bit for bit; its last line ``{"ok": ..., "cards": n}``.
 
 Phases:
 
@@ -80,7 +86,7 @@ Phases:
 7. the segmentation handlers and the intensity map: (7a) ``-find-minima``
    and ``-find-maxima`` at 1024 x 1024 x 512 (a membrane phantom blurred
    at sigma 3): walls, extrema counts, card against CPU on a crop; (7b)
-   ``-watershed minima``, the native flood, at 128 x 512 x 512, its
+   ``-watershed minima``, the native flood, at 64 x 512 x 512, its
    microseconds per voxel,
    the flood against its Python twin on a crop, ``ref_gauss.mrc`` with
    and without ``-markers`` card against CPU; (7c)
@@ -137,6 +143,27 @@ Phases:
    ``histogram_mrc``, ``voxelize_mesh`` on an icosphere,
    ``draw_filter_1d``), walls, and the three device tools card against
    CPU on a (64, 128, 128) crop.
+10. ``-mesh`` in a multi-process cluster (``parallel/distributed``), each
+    rank a child process (``cluster_rank``) with the VISFD_* variables
+    set and a timeout; a rank that fails or hangs fails the phase:
+    (10a) two ranks on the one card over gloo, each with blocks on
+    ``["cuda:0"] * 2`` (the (2, 2) grid of 5c), run 5c's command with
+    ``-mesh -1`` on 5c's input: the output equals 5c's ``-mesh 4``
+    output bit for bit, rank 1 writes nothing, each per-shard kernel
+    launches once per block of each rank; per rank the wall, the gather
+    and its exchanges, the halo exchanges (seconds and bytes), the peak
+    card memory and the host peak RSS; (10b) the same two ranks with
+    ``-connect T -connect-angle 30`` on 6c's input and T, and with
+    ``-select-cluster 1 -normals-file`` at 7d's normals size, and
+    ``-ggauss 2`` on 6c's input (the dense kernel over blocks with halos
+    from the other rank): labels, PLY and filter output equal the
+    one-process ``-mesh 4`` run's; (10c) one rank over
+    NCCL, 5c's ``-mesh 4`` over ``["cuda:0"] * 4``, equal to 5c, and two
+    NCCL ranks on the one card refused with the cause named (two-rank
+    NCCL needs two cards and is not verified here); (10d)
+    ``entry.dryrun_multichip(4)`` on the card; (10e)
+    ``utils.profiling.device_trace`` around phase 3's command: the
+    trace's kernel events and the card's busy share of the wall.
 
 A failed check is reported where it happens and the later phases still
 run; the script then exits non-zero without a result line.  On success
@@ -150,7 +177,8 @@ launches in one run: the vote score with its vector has one entry for
 one device, from 6c, and one per block, from 7d's ``-mesh`` run; the
 blur's per-axis mode counts 8e's ``-gauss 21`` run, the dense kernel
 8e's ``-ggauss`` run, its (1, Ky, Kx) mode 9a's ``-doggxy`` run and its
-31^3 mode 9a's ``-template-gauss`` run) and
+31^3 mode 9a's ``-template-gauss`` run; ``cluster_launches``: each
+rank's launches in 10a) and
 the last line ``{"ok": true, "device": {...}}``.  TF32
 is turned off for cuDNN and matmuls (the twins use neither; the
 library yardsticks are timed in float32).
@@ -1578,7 +1606,9 @@ def phase_mesh_stages(chk, card, dev="cuda"):
 
 
 def phase_mesh_cli(chk, card, tmp, dev="cuda"):
-    """5c: the -mesh CLI against the single-device CLI at MESH_SHAPE."""
+    """5c: the -mesh CLI against the single-device CLI at MESH_SHAPE.
+    Returns (the -mesh run's launch counts, (its input file, its output
+    file)): phase 10 runs the same command in a cluster."""
     import torch
     from visfd_tpu_torch.cli import filter_mrc as TFM
     from visfd_tpu_torch.io import mrc
@@ -1628,8 +1658,10 @@ def phase_mesh_cli(chk, card, tmp, dev="cuda"):
               f"{rep.format_paths()}; launches {counts} [{card}]")
         outs[label] = (mrc.read_mrc(fout).data, rep.paths)
         launches[label] = counts
-        os.unlink(fout)
-    os.unlink(fin)
+        if label == "-mesh":
+            kept = fout
+        else:
+            os.unlink(fout)
     (meshed, paths), (single, paths1) = outs["-mesh"], outs["single device"]
     n = len(mesh_devs)
     lm = launches["-mesh"]
@@ -1654,7 +1686,7 @@ def phase_mesh_cli(chk, card, tmp, dev="cuda"):
     share = _membrane_metrics(torch.tensor(meshed, device=dev), dist, 3.0)
     chk.check(share >= 0.9, f"top 0.5% voxels within 3 voxels of a phantom "
                             f"membrane: {share:.4f}")
-    return lm
+    return lm, (fin, kept)
 
 # ---------------------------------------------------------------------------
 # phase 6: -connect
@@ -2056,10 +2088,11 @@ def phase_connect_normals(chk, card, tmp, thr, shape=NORMALS_SHAPE,
 
 SEG_SHAPE = MESH_SHAPE          # (Z, Y, X) of 7a, 7c and the 7d timing
 SEG_CROP = (128, 256, 256)      # 7a's card-against-CPU crop
-# 7b's shape: the native flood takes ~3.6 us a voxel (245 s at
-# 256 x 512 x 512 on an H100 80GB HBM3 at 700 W), so half that depth
-# leaves phase 8 its room in the 1200 s
-WS_SHAPE = (128, 512, 512)
+# 7b's shape: the native flood takes 2.5-3.6 us a voxel (245 s at
+# 256 x 512 x 512, 84.6 s at 128 x 512 x 512 on an H100 80GB HBM3 at
+# 700 W), so a quarter of that depth leaves phases 8-10 their room in
+# the 1200 s
+WS_SHAPE = (64, 512, 512)
 PY_CROP = 48                    # 7b's native-against-Python crop
 PROP_CROP = (64, 128, 128)      # 7c's card-against-CPU crop
 DISTINCT_CROP = (24, 48, 48)    # 7c's crop against the host Meyer flood
@@ -3465,6 +3498,379 @@ def phase_tools(chk, card, tmp, blob, exp_outs, dev="cuda"):
     return walls
 
 
+# ---------------------------------------------------------------------------
+# phase 10: -mesh in a multi-process cluster
+
+RANK_TIMEOUT = 240              # s: a child rank that outlives it fails
+RANK_BLOCKS = 2                 # blocks a rank: two ranks make a (2, 2) grid
+
+
+def cluster_rank(spec_path: str) -> int:
+    """One rank of a phase-10 cluster (run in a child process with the
+    VISFD_* variables set): joins with the spec's backend, runs each of
+    its CLI commands with the counts and peaks reset just before and
+    read just after, the ranks meeting at a barrier after each, and
+    prints one ``RESULT`` JSON line."""
+    from datetime import timedelta
+    import torch
+    import torch.distributed as dist
+    from visfd_tpu_torch.cli import filter_mrc as TFM
+    from visfd_tpu_torch.ops import blur_cuda, dense_cuda, eigen_cuda as EC
+    from visfd_tpu_torch.ops import tv_cuda
+    from visfd_tpu_torch.parallel import distributed as D
+    from visfd_tpu_torch.utils.progress import Report
+
+    spec = json.load(open(spec_path))
+    D.init_distributed(backend=spec["backend"],
+                       timeout=timedelta(seconds=spec["timeout"]))
+    on_card = spec["device"] == "cuda"
+    wrappers = {"blur3": blur_cuda.blur3,
+                "hessian_principal_block": EC.hessian_principal_block,
+                "tv_votes_prepadded": tv_cuda.tv_votes_prepadded,
+                "sym3_score": EC.sym3_score,
+                "hessian_principal": EC.hessian_principal,
+                "tv_votes": tv_cuda.tv_votes,
+                "conv3d_dense": dense_cuda.conv3d_dense}
+    writes = []
+
+    def spy(fn):
+        def wrapped(path, *a, **k):
+            writes.append(str(path))
+            return fn(path, *a, **k)
+        return wrapped
+    TFM.mrc.write_mrc = spy(TFM.mrc.write_mrc)
+    TFM.write_oriented_pointcloud_ply = spy(
+        TFM.write_oriented_pointcloud_ply)
+    results = []
+    for run in spec["runs"]:
+        writes.clear()
+        D.reset_traffic()
+        for w in wrappers.values():
+            w.launches = 0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        rep = Report(None)
+        with _PeakRss() as rss:
+            t0 = time.perf_counter()
+            rc = TFM.run(run["argv"], device=spec["device"], report=rep,
+                         mesh_devices=[d.format(rank=D.process_index())
+                                       for d in run["devices"]])
+            wall = time.perf_counter() - t0
+        results.append({
+            "label": run["label"], "rc": rc, "wall": wall,
+            "timings": rep.timings, "paths": rep.paths,
+            "traffic": {k: dict(v) for k, v in D.traffic.items()},
+            "launches": {k: w.launches for k, w in wrappers.items()},
+            "card_gib": (torch.cuda.max_memory_allocated() / 2**30
+                         if on_card else 0.0),
+            "rss_gib": rss.gib, "writes": list(writes)})
+        dist.barrier()
+    print("RESULT " + json.dumps({"rank": D.process_index(),
+                                  "backend": D.backend(),
+                                  "runs": results}), flush=True)
+    D.shutdown_distributed()
+    return 0
+
+
+def _spawn_cluster(tmp, n, backend, runs, dev, timeout=RANK_TIMEOUT):
+    """``cluster_rank`` in ``n`` child processes on a free local port.
+    Returns [(exit code, stdout, stderr)] per rank; a rank that outlives
+    ``timeout`` is killed, and once one fails the others get 30 s (a
+    rank waiting on a collective of a dead peer would wait for the
+    process group's timeout)."""
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    spec = os.path.join(tmp, f"cluster_{port}.json")
+    json.dump({"backend": backend, "timeout": timeout, "runs": runs,
+               "device": dev}, open(spec, "w"))
+    env = dict(os.environ, VISFD_COORDINATOR=f"127.0.0.1:{port}",
+               VISFD_NUM_PROCESSES=str(n))
+    code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+            f"sys.exit(chip_smoke.cluster_rank({spec!r}))")
+    # each rank's output goes to files: a rank blocked on a full pipe
+    # would stall the others at their next collective
+    logs = [[open(f"{spec}.{r}.{k}", "w+") for k in ("out", "err")]
+            for r in range(n)]
+    procs = [subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                              env=dict(env, VISFD_PROCESS_ID=str(r)),
+                              stdout=logs[r][0], stderr=logs[r][1])
+             for r in range(n)]
+    deadline = time.monotonic() + timeout
+    notes = [""] * n
+    try:
+        for r, p in enumerate(procs):
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+                notes[r] = f"\nchip_smoke: rank killed after {timeout} s"
+            if p.returncode != 0:
+                deadline = min(deadline, time.monotonic() + 30)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    done = []
+    for r, p in enumerate(procs):
+        out, err = (f.seek(0) or f.read() for f in logs[r])
+        done.append((p.returncode, out, err + notes[r]))
+        for f in logs[r]:
+            f.close()
+            os.unlink(f.name)
+    os.unlink(spec)
+    return done
+
+
+def _rank_results(chk, label, done):
+    """The ranks' RESULT records, or None (and the check failed, each
+    rank's error printed) when a rank failed."""
+    ok = all(rc == 0 for rc, _, _ in done)
+    for r, (rc, out, err) in enumerate(done):
+        if rc != 0:
+            print(f"    rank {r} exit {rc}:\n{err[-3000:]}")
+    chk.check(ok, f"{label}: every rank exited 0 ({[d[0] for d in done]})")
+    if not ok:
+        return None
+    return [json.loads(next(ln for ln in out.splitlines()
+                            if ln.startswith("RESULT "))[7:])
+            for _, out, _ in done]
+
+
+def _print_rank(label, r, rec, card):
+    tr = rec["traffic"]
+
+    def t(kind):
+        v = tr.get(kind, {})
+        return (f"{v.get('seconds', 0.0):.3f} s, "
+                f"{v.get('bytes_received', 0) / 2**20:.1f} MiB in, "
+                f"{v.get('bytes_sent', 0) / 2**20:.1f} MiB out, "
+                f"{v.get('calls', 0)} calls")
+    tm = rec["timings"]
+    print(f"  {label} rank {r}: wall {rec['wall']:.3f} s; gather "
+          f"('copy the result to the host') "
+          f"{tm.get('copy the result to the host', float('nan')):.3f} s, "
+          f"its exchanges {t('gather')}; halo exchanges {t('halo')}; "
+          f"peak card memory {rec['card_gib']:.2f} GiB; host peak RSS "
+          f"{rec['rss_gib']:.2f} GiB; stages: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in tm.items())
+          + f"; launches {rec['launches']} [{card}]", flush=True)
+
+
+def _tv_launches(blocks):
+    """The launches of the flagship over ``blocks`` blocks of a rank:
+    every per-shard kernel once a block, no single-device one."""
+    return {"blur3": blocks, "hessian_principal_block": blocks,
+            "tv_votes_prepadded": blocks, "sym3_score": blocks,
+            "hessian_principal": 0, "tv_votes": 0, "conv3d_dense": 0}
+
+
+def _cluster_checks(chk, label, recs, want_writes, want_launches):
+    """Rank 0 wrote ``want_writes``, the other ranks nothing; each rank
+    launched the kernels ``want_launches`` counts."""
+    chk.check(all(rec["rc"] == 0 for rec in recs)
+              and recs[0]["writes"] == want_writes
+              and all(rec["writes"] == [] for rec in recs[1:]),
+              f"{label}: rank 0 wrote {recs[0]['writes']}, the others "
+              f"{[rec['writes'] for rec in recs[1:]]}")
+    for r, rec in enumerate(recs):
+        n = rec["launches"]
+        chk.check(all(n[k] == v for k, v in want_launches.items()),
+                  f"{label} rank {r}: launches {n}, {want_launches} "
+                  f"expected")
+
+
+def phase_cluster(chk, card, tmp, mesh_files, thr, dev="cuda"):
+    """10: -mesh in a multi-process cluster (10a-10c), the dry run (10d)
+    and a device trace (10e).  Returns the launches of 10a per rank."""
+    import torch
+    from visfd_tpu_torch.io import mrc
+    from visfd_tpu_torch.utils.phantom import membrane_phantom
+
+    fin5, fout5 = mesh_files
+    blocks = [f"{dev}:0" if dev == "cuda" else dev] * RANK_BLOCKS
+    smi = subprocess.run(["free", "-g"], capture_output=True, text=True)
+    print(f"== phase 10: -mesh in a multi-process cluster; host memory "
+          f"(free -g):\n{smi.stdout.rstrip()}", flush=True)
+    torch.cuda.empty_cache()
+    shape5 = "x".join(map(str, MESH_SHAPE[::-1]))
+    args5 = "-w 1 -membrane minima 3 -tv 1.5 -tv-angle-exponent 4"
+
+    # 10a and 10b: two ranks on the one card over gloo
+    vol, _ = membrane_phantom(MAIN_SHAPE, seed=SEED + 60, thickness=3.0,
+                              device=dev)
+    fin6 = os.path.join(tmp, "c10_in.mrc")
+    mrc.write_mrc(fin6, vol.cpu().numpy())
+    vol, _ = membrane_phantom(M7_SMALL, seed=SEED + 62, thickness=3.0,
+                              device=dev)
+    finn = os.path.join(tmp, "c10_n_in.mrc")
+    mrc.write_mrc(finn, vol.cpu().numpy())
+    del vol
+    conn = CONNECT_ARGS.split() + ["-connect", repr(thr), "-connect-angle",
+                                   "30"]
+    normals = ["-select-cluster", "1", "-normals-file"]
+
+    def runs(tag):
+        o = os.path.join(tmp, f"c10_{tag}")
+        return [
+            ("10a", ["-in", fin5, "-out", f"{o}_a.mrc", "-mesh", "-1"]
+             + args5.split()),
+            ("10b", ["-in", fin6, "-out", f"{o}_b.mrc", "-mesh", "-1"]
+             + conn),
+            ("10b normals", ["-in", finn, "-out", f"{o}_n.mrc", "-mesh", "-1"]
+             + conn + normals + [f"{o}_n.ply"]),
+            ("10b -ggauss", ["-in", fin6, "-out", f"{o}_g.mrc", "-mesh", "-1",
+                             "-w", "1", "-ggauss", "2"])]
+    # the one-process -mesh 4 references of 10b, and the dense kernel's
+    # launches in the filter's
+    from visfd_tpu_torch.ops import dense_cuda
+    dense_one = {}
+    for lab, argv in runs("one")[1:]:
+        dense_cuda.conv3d_dense.launches = 0
+        rc, wall, rep = _run_cli(argv, dev, mesh=blocks * 2)
+        dense_one[lab] = dense_cuda.conv3d_dense.launches
+        chk.check(rc == 0 and (lab != "10b -ggauss" or dense_one[lab] > 0),
+                  f"{lab} one process, -mesh 4: exit {rc}, "
+                  f"{dense_one[lab]} dense-kernel launches")
+        print(f"  {lab} one process, -mesh 4: wall {wall:.3f} s; "
+              f"{_spans(rep)} [{card}]", flush=True)
+    torch.cuda.empty_cache()
+    print(f"== phase 10a/10b: two ranks on {card.split(',')[0]} over gloo, "
+          f"each with blocks on {blocks}: a (2, 2) grid; 10a "
+          f"filter_mrc {args5} -mesh -1 at {shape5} (5c's input); 10b "
+          f"{CONNECT_ARGS} -connect T -connect-angle 30 at "
+          f"{'x'.join(map(str, MAIN_SHAPE[::-1]))} (6c's input, T = "
+          f"{thr!r}), with -select-cluster 1 -normals-file at "
+          f"{'x'.join(map(str, M7_SMALL[::-1]))} (7d's normals size: the "
+          f"host walker takes ~1 ms a vertex), and -ggauss 2 on "
+          f"6c's input (the dense kernel over ghosted blocks)", flush=True)
+    t0 = time.perf_counter()
+    done = _spawn_cluster(tmp, 2, "gloo", [
+        {"label": lab, "argv": a, "devices": blocks}
+        for lab, a in runs("two")], dev)
+    print(f"  the two ranks: {time.perf_counter() - t0:.1f} s with their "
+          f"start-up", flush=True)
+    recs = _rank_results(chk, "10a/10b two ranks over gloo", done)
+    launches = None
+    if recs is not None:
+        for i, (lab, argv) in enumerate(runs("two")):
+            for r in range(2):
+                _print_rank(lab, r, recs[r]["runs"][i], card)
+            want = [argv[-1], argv[3]] if lab == "10b normals" else [argv[3]]
+            n = (dict(_tv_launches(0), conv3d_dense=dense_one[lab] // 2)
+                 if lab == "10b -ggauss" else _tv_launches(RANK_BLOCKS))
+            _cluster_checks(chk, lab, [recs[r]["runs"][i] for r in range(2)],
+                            want, n)
+        launches = [recs[r]["runs"][0]["launches"] for r in range(2)]
+        a = mrc.read_mrc(runs("two")[0][1][3]).data
+        b = mrc.read_mrc(fout5).data
+        nd = int((a.view(np.int32) != b.view(np.int32)).sum())
+        chk.check(a.shape == b.shape and nd == 0,
+                  f"10a: two ranks' output == 5c's -mesh 4 output: {nd} "
+                  f"voxels differ")
+        del a, b
+        for (lab, two), (_, one) in zip(runs("two")[1:], runs("one")[1:]):
+            _same_files(chk, f"{lab}: two ranks' output == one process "
+                             f"-mesh 4", two[3], one[3])
+        ply2, ply1 = runs("two")[2][1][-1], runs("one")[2][1][-1]
+        chk.check(open(ply2, "rb").read() == open(ply1, "rb").read(),
+                  "10b: the -normals-file PLY of two ranks == one "
+                  "process's, byte for byte")
+    for _, argv in runs("two") + runs("one"):
+        for f in (argv[3], argv[-1]):
+            if f.endswith((".mrc", ".ply")) and os.path.exists(f) \
+                    and f not in (fin5, fin6, finn):
+                os.unlink(f)
+    for f in (fin6, finn):
+        os.unlink(f)
+
+    # 10c: NCCL with one rank, and two ranks on one card refused
+    print(f"== phase 10c: one rank over NCCL, blocks on {blocks * 2} "
+          f"(-mesh 4, 5c's command); two NCCL ranks on one card refused. "
+          f"Two-rank NCCL is unverified here: it needs two cards",
+          flush=True)
+    o = os.path.join(tmp, "c10_c.mrc")
+    done = _spawn_cluster(tmp, 1, "nccl", [
+        {"label": "10c", "argv": ["-in", fin5, "-out", o, "-mesh", "4"]
+         + args5.split(), "devices": blocks * 2}], dev)
+    recs = _rank_results(chk, "10c one rank over NCCL", done)
+    if recs is not None:
+        rec = recs[0]["runs"][0]
+        _print_rank("10c", 0, rec, card)
+        chk.check(recs[0]["backend"] == "nccl",
+                  f"10c backend {recs[0]['backend']}")
+        _same_files(chk, "10c: one NCCL rank's output == 5c's -mesh 4 "
+                         "output", o, fout5)
+        os.unlink(o)
+    done = _spawn_cluster(tmp, 2, "nccl", [], dev, timeout=180)
+    errs = [err for _, _, err in done]
+    chk.check(all(rc != 0 for rc, _, _ in done) and all(
+        "Duplicate GPU detected" in e and "backend='gloo'" in e
+        for e in errs),
+        f"10c: two NCCL ranks on one card raise and name the cause (exit "
+        f"codes {[d[0] for d in done]}): "
+        + (errs[0].strip().splitlines() or ["(no output)"])[-1])
+    os.unlink(fin5)
+    os.unlink(fout5)
+
+    # 10d: the dry run on the card
+    print(f"== phase 10d: entry.dryrun_multichip(4, devices={blocks * 2})",
+          flush=True)
+    from visfd_tpu_torch.entry import dryrun_multichip
+    t0 = time.perf_counter()
+    dryrun_multichip(4, devices=blocks * 2)
+    chk.check(True, f"10d: dryrun_multichip(4) passed in "
+                    f"{time.perf_counter() - t0:.1f} s [{card}]")
+
+    # 10e: a device trace of phase 3's run
+    from visfd_tpu_torch.utils.profiling import device_trace
+    vol, _ = membrane_phantom(MAIN_SHAPE, seed=SEED, thickness=3.0,
+                              device=dev)
+    fin, fout = os.path.join(tmp, "c10_e.mrc"), os.path.join(tmp,
+                                                              "c10_eo.mrc")
+    mrc.write_mrc(fin, vol.cpu().numpy())
+    del vol
+    print(f"== phase 10e: device_trace around phase 3's run "
+          f"({'x'.join(map(str, MAIN_SHAPE[::-1]))})", flush=True)
+    with device_trace(os.path.join(tmp, "trace")) as prof:
+        t0 = time.perf_counter()
+        rc, _, _ = _run_cli(["-in", fin, "-out", fout] + args5.split(), dev)
+        wall = time.perf_counter() - t0
+    events = json.load(open(prof.trace_path))["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    busy = _union_us([(e["ts"], e["ts"] + e.get("dur", 0)) for e in kern])
+    names = {}
+    for e in kern:
+        names[e["name"][:40]] = names.get(e["name"][:40], 0) + 1
+    chk.check(rc == 0 and len(kern) > 0,
+              f"10e: the trace {prof.trace_path} "
+              f"({os.path.getsize(prof.trace_path) / 2**20:.1f} MiB) holds "
+              f"{len(kern)} kernel events")
+    print(f"  wall {wall:.3f} s under the profiler; the card busy "
+          f"{busy / 1e6:.3f} s ({100 * busy / 1e6 / wall:.1f}% of the wall, "
+          f"kernel intervals merged), idle {100 - 100 * busy / 1e6 / wall:.1f}"
+          f"%; kernel events by name: "
+          + ", ".join(f"{k} x{v}" for k, v in sorted(
+              names.items(), key=lambda kv: -kv[1])[:12]) + f" [{card}]",
+          flush=True)
+    for f in (fin, fout, prof.trace_path):
+        os.unlink(f)
+    return launches
+
+
+def _union_us(intervals):
+    """Microseconds covered by the union of (start, end) intervals."""
+    total, end = 0.0, -np.inf
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
 def main() -> int:
     try:
         import torch  # noqa: F401
@@ -3493,7 +3899,8 @@ def main() -> int:
         mesh_stats = chk.run(phase_mesh_kernels, chk, card)
         mesh_small = chk.run(phase_mesh_small, chk, card)
         mesh_v_stats = chk.run(phase_mesh_stages, chk, card)
-        mesh_launches = chk.run(phase_mesh_cli, chk, card, tmp)
+        mesh_cli = chk.run(phase_mesh_cli, chk, card, tmp)
+        mesh_launches = None if mesh_cli is None else mesh_cli[0]
         connect = chk.run(phase_connect_runs, chk, card, tmp)
         if connect is not None and connect[2] is not None:
             chk.run(phase_connect_host, chk, card, connect[2], connect[0])
@@ -3525,6 +3932,10 @@ def main() -> int:
             chk.run(phase_distance, chk, card, tmp, blob)
         if exp is not None:
             chk.run(phase_tools, chk, card, tmp, blob, exp[1])
+        cluster = None
+        if mesh_cli is not None and connect is not None:
+            cluster = chk.run(phase_cluster, chk, card, tmp, mesh_cli[1],
+                              connect[0])
     print(f"total {time.perf_counter() - t_start:.1f} s")
     if chk.failed:
         print(f"chip_smoke: {len(chk.failed)} check(s) failed:",
@@ -3561,7 +3972,10 @@ def main() -> int:
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"],
                         "library_ms": s["library_ms"],
-                        "library_shape": s.get("library_shape")})
+                        "library_shape": s.get("library_shape"),
+                        "cluster_launches": None if cluster is None
+                        or name not in cluster[0] else
+                        [c[name] for c in cluster]})
     import torch
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -3571,5 +3985,85 @@ def main() -> int:
     return 0
 
 
+def phase_cards(chk, card, tmp, n, dev="cuda", backend="nccl"):
+    """11 (``--nccl``): -mesh with one card a rank over NCCL on ``n``
+    cards (and on 2): 5c's command at 537M and 6c's -connect, each
+    against the one-process -mesh run over the same cards, bit for
+    bit."""
+    import torch
+    from visfd_tpu_torch.io import mrc
+    from visfd_tpu_torch.utils.phantom import membrane_phantom
+
+    rank_dev = ["cuda:{rank}"] if dev == "cuda" else [dev]
+    cards = [f"cuda:{i}" for i in range(n)] if dev == "cuda" else [dev] * n
+    thr, fin6 = _connect_threshold(chk, card, tmp, MAIN_SHAPE, dev)
+    vol, _ = membrane_phantom(MESH_SHAPE, seed=SEED + 53, thickness=3.0,
+                              device=dev)
+    fin5 = os.path.join(tmp, "c11_in.mrc")
+    mrc.write_mrc(fin5, vol.cpu().numpy())
+    del vol
+    torch.cuda.empty_cache()
+    args5 = "-w 1 -membrane minima 3 -tv 1.5 -tv-angle-exponent 4".split()
+    conn = CONNECT_ARGS.split() + ["-connect", repr(thr), "-connect-angle",
+                                   "30"]
+    for k in sorted({2, n}):
+        for lab, fin, args in ((f"11a ({k} ranks)", fin5, args5),
+                               (f"11b ({k} ranks)", fin6, conn)):
+            print(f"== phase {lab}: {k} ranks over {backend}, one card "
+                  f"each, -mesh -1, against one process -mesh {k} over "
+                  f"{cards[:k]} [{card}]", flush=True)
+            one, two = (os.path.join(tmp, f"c11_{t}.mrc")
+                        for t in ("one", "ranks"))
+            rc, wall, rep = _run_cli(["-in", fin, "-out", one, "-mesh",
+                                      str(k)] + args, dev, mesh=cards[:k])
+            chk.check(rc == 0, f"{lab} one process: exit {rc}")
+            print(f"  one process, -mesh {k}: wall {wall:.3f} s; "
+                  f"{_spans(rep)} [{card}]", flush=True)
+            done = _spawn_cluster(tmp, k, backend, [
+                {"label": lab, "argv": ["-in", fin, "-out", two, "-mesh",
+                                        "-1"] + args,
+                 "devices": rank_dev}], dev)
+            recs = _rank_results(chk, f"{lab} over {backend}", done)
+            if recs is None:
+                continue
+            runs = [rec["runs"][0] for rec in recs]
+            for r, rec in enumerate(runs):
+                _print_rank(lab, r, rec, card)
+            chk.check(all(rec["backend"] == backend for rec in recs),
+                      f"{lab}: backend {[rec['backend'] for rec in recs]}")
+            _cluster_checks(chk, lab, runs, [two], _tv_launches(1))
+            _same_files(chk, f"{lab}: the ranks' output == one process's",
+                        two, one)
+            for f in (one, two):
+                os.unlink(f)
+    for f in (fin5, fin6):
+        os.unlink(f)
+
+
+def nccl_main() -> int:
+    """``python3 chip_smoke.py --nccl``, on a machine with two or more
+    cards: the kernels' build and phase 11."""
+    import torch
+    card = phase_card()
+    if card is None:
+        return 2
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"chip_smoke --nccl: needs two cards or more, sees {n}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    chk = Checks()
+    if chk.run(phase_build, chk) is None:
+        return 1
+    with tempfile.TemporaryDirectory(prefix=".tmp_chip_smoke_",
+                                     dir=ROOT) as tmp:
+        chk.run(phase_cards, chk, card, tmp, n)
+    for f in chk.failed:
+        print(f"  failed: {f}", file=sys.stderr)
+    print(json.dumps({"ok": not chk.failed, "cards": n}))
+    return 1 if chk.failed else 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(nccl_main() if sys.argv[1:] == ["--nccl"] else main())

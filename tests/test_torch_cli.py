@@ -184,13 +184,17 @@ def test_fraction_threshold_bit_identical(masked):
 
 @pytest.mark.parametrize("flag,env", [
     ("-load-progress-sharded p", False), ("-save-progress-sharded p", False),
-    ("-gaus 2", False), ("-coords c.txt", False), ("-mesh 4", True)])
+    ("-gaus 2", False), ("-coords c.txt", False),
+    ("-find-minima f.txt -mesh 4", True)])
 def test_cli_names_unhandled_flags(phantom, flag, env, monkeypatch):
     """What the port still refuses names itself: the orbax checkpoints, a
-    misspelt flag, another tool's flag, and -mesh in a multi-process
-    cluster."""
+    misspelt flag, another tool's flag, and a handler that -mesh does not
+    run in a multi-process cluster (refused before the cluster is
+    joined, so nothing is contacted)."""
     if env:
         monkeypatch.setenv("VISFD_COORDINATOR", "localhost:1234")
+        monkeypatch.setenv("VISFD_NUM_PROCESSES", "2")
+        monkeypatch.setenv("VISFD_PROCESS_ID", "0")
     argv = (f"-in {phantom}/in.mrc -w 1 -membrane minima 2.5 -tv 1.0 "
             f"{flag}").split()
     with pytest.raises(InputError, match=flag.split()[0]):

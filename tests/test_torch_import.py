@@ -49,6 +49,8 @@ SLICE_MODULES = [
     "visfd_tpu_torch.cli.print_mrc_stats",
     "visfd_tpu_torch.cli.histogram_mrc", "visfd_tpu_torch.cli.voxelize_mesh",
     "visfd_tpu_torch.cli.draw_filter_1d",
+    "visfd_tpu_torch.parallel.distributed", "visfd_tpu_torch.entry",
+    "visfd_tpu_torch.utils.profiling",
     # the card's script and tests, run where jax is absent
     "chip_smoke", "tests.test_torch_cuda_kernels",
 ]

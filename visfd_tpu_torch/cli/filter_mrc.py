@@ -56,8 +56,23 @@ threshold as an exact radix selection over the blocks
 per block; ``-watershed-device`` runs the blockwise loops over the mesh
 (``parallel/sharded_features``), and the filters and ``-blob`` walk the
 blocks with halos as deep as their footprints.  Every output equals the
-single-device run's.  One process drives every block: a multi-process cluster
-(``VISFD_COORDINATOR`` or ``VISFD_NUM_PROCESSES`` set) is refused.
+single-device run's.  A volume the mesh does not divide runs whole on
+one device.
+
+Several processes run one ``-mesh`` command as a cluster when
+``VISFD_COORDINATOR``, ``VISFD_NUM_PROCESSES`` and ``VISFD_PROCESS_ID``
+are set (``parallel/distributed``, joined at the start of ``run``): the
+grid is drawn from every rank's devices, each rank runs the stages on
+its own blocks, halos and reductions cross ranks, and the output is the
+one-process output bit for bit.  Every rank reads the whole input and
+gathers whole outputs (``to_host_np``); only rank 0 writes files
+(``is_writer``).  A volume the mesh does not divide runs whole on every
+rank, and rank 0 writes.  In a cluster ``-mesh`` runs ``-membrane``,
+``-curve``, ``-edge`` (with ``-tv``, ``-connect``, ``-normals-file``,
+``-save/-load-progress``), the stand-alone ``-connect``, the
+convolution filters, morphology, ``-template-gauss``, ``-doggxy`` and
+the intensity map; ``-find-*``, ``-watershed``, ``-blob``, the blob
+tools and the host handlers raise ``InputError``.
 
 The port takes every flag the settings parser takes, which raises
 ``InputError`` for the flags it does not know and for the renamed ones
@@ -104,7 +119,9 @@ from visfd_tpu_torch.ops import resample as R
 from visfd_tpu_torch.ops import threshold as T
 from visfd_tpu_torch.ops.eigen_cuda import hessian_principal, sym3_score
 from visfd_tpu_torch.ops.tv_cuda import tv_votes
-from visfd_tpu_torch.parallel.gather import to_host_np
+from visfd_tpu_torch.parallel.distributed import (
+    init_distributed, process_count)
+from visfd_tpu_torch.parallel.gather import is_writer, to_host_np
 from visfd_tpu_torch.parallel.mesh import (
     Mesh, ShardedVolume, as_blocks, bmap, divides, make_mesh, shard,
     unwrap)
@@ -126,9 +143,22 @@ _REFUSED = {
                               "checkpoint, a JAX format; use -load-progress"),
 }
 
-# the variables with which the JAX package joins a multi-process cluster
-# (visfd_tpu/parallel/distributed.py)
-_CLUSTER_ENV = ("VISFD_COORDINATOR", "VISFD_NUM_PROCESSES")
+# what -mesh runs in a multi-process cluster; any other handler is refused
+# there, naming its flag
+_CLUSTER_HANDLERS = (
+    S.NONE, S.SURFACE_RIDGE, S.SURFACE_EDGE, S.CURVE, S.LABEL_CONNECTED,
+    S.GAUSS, S.GGAUSS, S.DOG, S.DOGG, S.LOG_DOG, S.LOCAL_FLUCTUATIONS,
+    S.MEDIAN, S.DILATION, S.EROSION, S.OPENING, S.CLOSING, S.TOP_HAT_WHITE,
+    S.TOP_HAT_BLACK, S.TEMPLATE_GAUSS, S.DOGGXY)
+_FLAGS = {
+    S.FIND_EXTREMA: "-find-minima/-find-maxima", S.WATERSHED: "-watershed",
+    S.BLOB: "-blob", S.BLOB_NONMAX_SUPPRESSION: "-discard-blobs",
+    S.BLOB_NONMAX_SUPERVISED_MULTI: "-supervised-multi",
+    S.DRAW_SPHERES: "-draw-spheres", S.DISTANCE_TO_POINTS: "-distance-points",
+    S.DISTANCE_TO_VOXELS: "-distance-to-voxels",
+    S.RANDOM_SPHERES: "-random-spheres",
+    S.BLOB_RADIAL_INTENSITY: "-blob-radial-intensity",
+}
 
 
 def _check_settings(s: Settings) -> None:
@@ -137,11 +167,31 @@ def _check_settings(s: Settings) -> None:
     for attr, (flag, why) in _REFUSED.items():
         if getattr(s, attr):
             raise InputError(f"Error: visfd_tpu_torch refuses {flag}: {why}")
-    if s.mesh_devices and any(v in os.environ for v in _CLUSTER_ENV):
+    if (s.mesh_devices and s.filter_type not in _CLUSTER_HANDLERS
+            and _cluster_size() > 1):
+        flag = _FLAGS.get(s.filter_type, s.filter_type)
         raise InputError(
-            f"Error: -mesh with {' or '.join(_CLUSTER_ENV)} set asks for a "
-            f"multi-process run, which visfd_tpu_torch does not run yet: "
-            f"one process drives every block (see ROADMAP.md)")
+            f"Error: {flag} with -mesh in a multi-process cluster is not "
+            f"ported yet (see ROADMAP.md): run it in one process")
+
+
+def _cluster_size() -> int:
+    """The processes of the cluster this run joins or has joined (1
+    for none)."""
+    if process_count() > 1:
+        return process_count()
+    return int(os.environ.get("VISFD_NUM_PROCESSES", "1"))
+
+
+def _join_cluster(mesh_devices) -> None:
+    """``init_distributed`` for a -mesh run: gloo when the rank's
+    devices are all on the host, else the default (NCCL where a card is
+    visible), under NCCL on the rank's card."""
+    devs = None if mesh_devices is None else [torch.device(d)
+                                              for d in mesh_devices]
+    cards = [d for d in devs or () if d.type == "cuda"]
+    init_distributed(backend="gloo" if devs and not cards else None,
+                     device=cards[0] if cards else None)
 
 
 def _truncate_ratio(s: Settings) -> float:
@@ -239,7 +289,8 @@ def handle_tv(s: Settings, img: mrc.MrcImage, x_np, mask_np, w, device,
         mask = _maybe_shard(mask_np, mesh, device)
     keep = None if mask is None else bmap(lambda m: m != 0, mask)
     sharded = grid_mesh_of(x) is not None
-    on_card = (mesh.devices[0][0] if sharded else device).type == "cuda"
+    on_card = (x.local_block.device if sharded
+               else device).type == "cuda"
     route = ("cuda" if on_card else "plain") + ("-sharded" if sharded
                                                 else "")
     hessian = hessian_principal_sharded if sharded else hessian_principal
@@ -347,12 +398,13 @@ def handle_tv(s: Settings, img: mrc.MrcImage, x_np, mask_np, w, device,
 
     if s.save_intermediate_fname_base and vote is not None:
         with stage("-save-progress", rep):
-            vote_np = to_host_np(vote) if sharded else None
+            vote_np = to_host_np(vote) if sharded else None  # a collective
             for d in range(6):
                 fname = f"{s.save_intermediate_fname_base}_tensor_{d}.rec"
-                print(f'writing "{fname}"', file=sys.stderr)
-                mrc.write_mrc(fname, vote_np[d] if sharded
-                              else to_host_np(vote[d]), header=img.header)
+                if is_writer():
+                    print(f'writing "{fname}"', file=sys.stderr)
+                    mrc.write_mrc(fname, vote_np[d] if sharded
+                                  else to_host_np(vote[d]), header=img.header)
 
     rep.line(rep.format_paths())
     direction_np = None
@@ -388,11 +440,14 @@ def handle_tv(s: Settings, img: mrc.MrcImage, x_np, mask_np, w, device,
             out = to_host_np(score)
 
     if s.out_normals_fname:
+        # the gathers are collectives; the walker and the file rank 0's
         if direction_np is None:
             direction_np = np.moveaxis(to_host_np(direction), 0, -1)
-        with stage("-normals-file", rep):
-            write_normals(s, to_host_np(score), direction_np, labels_img,
-                          mask_np, w)
+        score_np = to_host_np(score)
+        if is_writer():
+            with stage("-normals-file", rep):
+                write_normals(s, score_np, direction_np, labels_img,
+                              mask_np, w)
     return out
 
 
@@ -654,10 +709,10 @@ def handle_extrema(s: Settings, x_np, mask_np, w, device,
                          f"{fmt_g(iz[i] * w[2])} {nvox[i]} "
                          f"{fmt_g(scores[i])}\n")
 
-    if s.find_minima and len(res.minima_indices):
+    if s.find_minima and len(res.minima_indices) and is_writer():
         write(s.find_minima_file_name, res.minima_indices,
               res.minima_nvoxels, res.minima_scores)
-    if s.find_maxima and len(res.maxima_indices):
+    if s.find_maxima and len(res.maxima_indices) and is_writer():
         write(s.find_maxima_file_name, res.maxima_indices,
               res.maxima_nvoxels, res.maxima_scores)
     out = res.label_image.astype(np.float32)
@@ -942,12 +997,12 @@ def handle_blob_detector(s: Settings, x, mask, x_np, mask_np, w, device,
         return B.BlobList(bl.crds * np.asarray(w)[None, :],
                           bl.diameters * w[0], bl.scores)
 
-    if s.blob_minima_file_name:
+    if s.blob_minima_file_name and is_writer():
         mn = B.sort_blobs(physical(minima), B.SORT_INCREASING,
                           ascending_order=False)
         write_blob_coords_file(s.blob_minima_file_name, mn.crds,
                                mn.diameters, mn.scores)
-    if s.blob_maxima_file_name:
+    if s.blob_maxima_file_name and is_writer():
         mx = B.sort_blobs(physical(maxima), B.SORT_DECREASING,
                           ascending_order=False)
         write_blob_coords_file(s.blob_maxima_file_name, mx.crds,
@@ -1031,7 +1086,7 @@ def load_blobs_for_nms(s: Settings, mask_np, w) -> B.BlobList:
 def handle_blob_nms(s: Settings, mask_np, w) -> B.BlobList:
     """``-discard-blobs``: the filtered list, written in physical units."""
     blobs = load_blobs_for_nms(s, mask_np, w)
-    if s.out_crds_file_name:
+    if s.out_crds_file_name and is_writer():
         vw = w[0] if w[0] > 0 else 1.0
         write_blob_coords_file(s.out_crds_file_name, blobs.crds * vw,
                                blobs.diameters * vw, blobs.scores)
@@ -1129,9 +1184,10 @@ def handle_distance_to_voxels(s: Settings, x_np, mask_np, w, device,
         dists = E.distance_points_to_feature(
             x_np, pts, s.out_thresh_a_value, s.out_thresh_b_value, vw,
             mask=mask_np, device=device)
-    with open(s.out_distances_file_name, "w") as fh:
-        for d in dists:
-            fh.write(f"{d}\n")
+    if is_writer():
+        with open(s.out_distances_file_name, "w") as fh:
+            for d in dists:
+                fh.write(f"{d}\n")
     return x_np
 
 
@@ -1146,9 +1202,10 @@ def handle_random_spheres(s: Settings, x_np, mask_np, w,
             x_np, s.rand_crds_n, s.rand_crds_diameter / vw,
             s.out_thresh_a_value, s.out_thresh_b_value,
             seed=s.rand_crds_seed, mask=mask_np)
-    with open(s.out_crds_file_name, "w") as fh:
-        for ix, iy, iz in centers:
-            fh.write(f"{ix * vw} {iy * vw} {iz * vw}\n")
+    if is_writer():
+        with open(s.out_crds_file_name, "w") as fh:
+            for ix, iy, iz in centers:
+                fh.write(f"{ix * vw} {iy * vw} {iz * vw}\n")
     return occ
 
 
@@ -1192,6 +1249,8 @@ def handle_blob_radial_intensity(s: Settings, x_np, mask_np, w,
                 center_criteria=s.blob_profiles_center_criteria,
                 mask=mask_np)
             fname = f"{s.blob_profiles_file_name_base}_{i + 1}.txt"
+            if not is_writer():
+                continue
             with open(fname, "w") as fh:
                 for ir, v in enumerate(profile):
                     fh.write(f"{ir * vw} {v}\n")
@@ -1205,7 +1264,8 @@ def run(argv, device="cuda", report: Optional[Report] = None,
     CUDA).  ``report`` collects the stage timings (default: stderr).
     ``mesh_devices`` lists the devices ``-mesh`` draws its blocks from
     (default: the visible cards; a device may repeat, so a test can
-    put several blocks on one card or on the CPU)."""
+    put several blocks on one card or on the CPU); in a multi-process
+    cluster, this rank's devices."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("visfd_tpu_torch: no CUDA device is visible; "
@@ -1214,6 +1274,10 @@ def run(argv, device="cuda", report: Optional[Report] = None,
     _check_settings(s)
     tv_types = (S.SURFACE_RIDGE, S.SURFACE_EDGE, S.CURVE)
     blob_tools = (S.BLOB_NONMAX_SUPPRESSION, S.BLOB_NONMAX_SUPERVISED_MULTI)
+    if s.mesh_devices:
+        # a multi-process run joins its cluster before the mesh is built
+        # (a no-op without VISFD_COORDINATOR / VISFD_NUM_PROCESSES)
+        _join_cluster(mesh_devices)
     mesh = _cli_mesh(s, mesh_devices)
     rep = report if report is not None else Report(sys.stderr)
 
@@ -1349,7 +1413,7 @@ def run(argv, device="cuda", report: Optional[Report] = None,
         with stage("copy the volume to the device", rep):
             x = _maybe_shard(x_np, mesh, device)
             mask = _maybe_shard(mask_np, mesh, device)
-        dev = mesh.devices[0][0] if mesh is not None else device
+        dev = x.local_block.device if mesh is not None else device
         rep.record_path("filter", ("cuda" if dev.type == "cuda" else "plain")
                         + ("-sharded" if mesh is not None else ""))
         if s.filter_type == S.BLOB:
@@ -1396,10 +1460,14 @@ def run(argv, device="cuda", report: Optional[Report] = None,
         hdr = dataclasses.replace(hdr)
         if not np.isclose(w[0], hdr.cellA[0] / max(nxo, 1)):
             hdr.cellA = (nxo * w[0], nyo * w[1], nzo * w[2])
-    print("writing tomogram (in 32-bit float mode)", file=sys.stderr)
-    with stage("write the tomogram", rep):
-        mrc.write_mrc(s.out_file_name, np.asarray(out, np.float32),
-                      header=hdr)
+    if is_writer():
+        print("writing tomogram (in 32-bit float mode)", file=sys.stderr)
+        with stage("write the tomogram", rep):
+            mrc.write_mrc(s.out_file_name, np.asarray(out, np.float32),
+                          header=hdr)
+    else:
+        print("skipping tomogram write (process != 0 in a multi-process "
+              "run)", file=sys.stderr)
     return 0
 
 

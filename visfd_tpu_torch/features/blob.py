@@ -247,9 +247,13 @@ def blob_dog(
 ) -> Tuple[BlobList, BlobList]:
     """Returns (minima, maxima) BlobLists with per-blob sigma stored in
     ``diameters`` (callers converting to diameters use blob_dog_d).
-    ``x`` (and ``mask``) may be ShardedVolumes: the same lists."""
+    ``x`` (and ``mask``) may be ShardedVolumes: the same lists.  A mesh
+    that spans ranks is refused (the candidate merge is not ported)."""
     if not isinstance(x, ShardedVolume):
         x = torch.as_tensor(x, dtype=torch.float32)
+    elif x.mesh.spans_processes:
+        raise NotImplementedError("blob_dog over a multi-process mesh is not "
+                                  "ported")
     m = mask
     if m is not None and not isinstance(m, ShardedVolume):
         m = torch.as_tensor(m, dtype=torch.float32, device=x.device)

@@ -31,7 +31,7 @@ import numpy as np
 from visfd_tpu_torch.ops import blur_cuda
 from visfd_tpu_torch.ops.blur_cuda import blur3
 from visfd_tpu_torch.ops.dense_cuda import conv3d_dense
-from visfd_tpu_torch.parallel.halo import haloed_block
+from visfd_tpu_torch.parallel.halo import haloed_block, with_ghosts
 from visfd_tpu_torch.parallel.mesh import ShardedVolume, bmap
 
 __all__ = ["conv1d_axis", "dense_conv3d", "separable_conv3d"]
@@ -103,9 +103,10 @@ def _correlate(v, kflip: torch.Tensor):
         return conv3d_dense(v, kflip.to(v.device))
     hz, hy = kflip.shape[0] // 2, kflip.shape[1] // 2
     bz, by = v.block_shape
+    ghosted = with_ghosts(v, hz, hy)
 
     def cell(iz, iy, b):
-        w = haloed_block(v, iz, iy, hz, 0.0, halo_y=hy)
+        w = haloed_block(ghosted, iz, iy, hz, 0.0, halo_y=hy)
         return conv3d_dense(w, kflip.to(b.device))[
             hz:hz + bz, hy:hy + by].contiguous()
     return v.with_blocks(cell)

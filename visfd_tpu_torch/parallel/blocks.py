@@ -6,6 +6,9 @@ The device watershed (``segment.propagate``) and the plateau labels of
 neighbours through a 1-voxel halo (``parallel.halo.halo1``), indexes
 voxels by their global flat index in the single-device raster order
 (``Geom``), and a loop runs until no block changes (``fixpoint``).
+Over a mesh that spans ranks the windows' halos come from
+``parallel.halo.with_ghosts`` and the loop's "changed" flags are summed
+over the ranks at each read, so every rank runs the same iterations.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from visfd_tpu_torch.parallel import distributed as D
 from visfd_tpu_torch.parallel.mesh import ShardedVolume
 
 SENT = 2 ** 31 - 1          # int32 sentinel (the JAX package's SENT, BIG)
@@ -90,12 +94,21 @@ class Geom:
                        for t in (lab,) + others]
 
 
+def _spans(state) -> bool:
+    """Whether a loop's state (a ShardedVolume or a tuple of them)
+    spans ranks."""
+    vols = state if isinstance(state, tuple) else (state,)
+    return any(isinstance(v, ShardedVolume) and v.mesh.spans_processes
+               for v in vols)
+
+
 def fixpoint(step, state, max_it: Optional[int] = None):
     """``state = step(state)`` until an iteration changes nothing (or
     ``max_it`` iterations ran), the per-block "changed" flags read every
-    SYNC_EVERY iterations.  Returns (state, iterations the JAX loop
-    runs): the changing iterations plus the one that found the
-    fixpoint."""
+    SYNC_EVERY iterations (and summed over the ranks when the state spans
+    them).  Returns (state, iterations the JAX loop runs): the changing
+    iterations plus the one that found the fixpoint."""
+    spans = _spans(state)
     it, n_changed = 0, 0
     while max_it is None or it < max_it:
         k = SYNC_EVERY if max_it is None else min(SYNC_EVERY, max_it - it)
@@ -104,8 +117,11 @@ def fixpoint(step, state, max_it: Optional[int] = None):
             state, changed = step(state)
             flags.append(changed)
         it += k
-        per_it = [any(bool(c) for c in ch) for ch in flags]
-        n_changed += sum(per_it)
+        per_it = np.array([sum(bool(c) for c in ch) for ch in flags],
+                          np.int64)
+        if spans:
+            per_it = D.allreduce_sum(per_it)
+        n_changed += int((per_it > 0).sum())
         if not per_it[-1]:
             break
     n = n_changed + 1
@@ -128,10 +144,11 @@ def iter_windows(vols, fills, halo, slab_voxels: Optional[int] = None):
     volume, x included), led by a boolean window that is True inside
     the volume (broadcast from its three axes).  A slab holds at most
     ``slab_voxels`` voxels of its block (one plane at least)."""
-    from visfd_tpu_torch.parallel.halo import window
+    from visfd_tpu_torch.parallel.halo import window, with_ghosts
     from visfd_tpu_torch.parallel.mesh import as_blocks
     hz, hy, hx = halo
-    bvs = [None if v is None else as_blocks(v) for v in vols]
+    bvs = [None if v is None else with_ghosts(as_blocks(v), hz, hy)
+           for v in vols]
     v0 = bvs[0]
     bz, by = v0.block_shape
     nz, ny, nx = v0.shape[-3:]
@@ -171,7 +188,8 @@ def map_windows(fn, vols, fills, halo, slab_voxels: Optional[int] = None):
     for iz, iy, _, _, wins in iter_windows(vols, fills, halo, slab_voxels):
         parts.setdefault((iz, iy), []).append(fn(*wins))
     nz_m, ny_m = v0.mesh.shape
-    blocks = [[torch.cat(parts[iz, iy]) if len(parts[iz, iy]) > 1
+    blocks = [[None if (iz, iy) not in parts
+               else torch.cat(parts[iz, iy]) if len(parts[iz, iy]) > 1
                else parts[iz, iy][0] for iy in range(ny_m)]
               for iz in range(nz_m)]
     return unwrap(from_blocks(blocks, v0.mesh), vols[0])

@@ -1,18 +1,25 @@
 """Device grids and (z, y)-block-sharded volumes.
 
-Port of ``visfd_tpu/parallel/mesh.py`` for one process.  The JAX package
-partitions a (Z, Y, X) voxel grid over a named ("z", "y")
-``jax.sharding.Mesh`` and runs each stage under ``shard_map``; the port
-keeps the same partition explicitly: a ``Mesh`` is a (nz_m, ny_m) grid
-of ``torch.device``s and a ``ShardedVolume`` holds one (Z/nz_m, Y/ny_m,
-X) block per grid cell, on that cell's device.  X (the fastest axis)
-stays whole, so every stencil along X is local; stencils across a z or
-y block boundary take halo rows from the neighbouring blocks
-(``parallel.halo``).
+Port of ``visfd_tpu/parallel/mesh.py``.  The JAX package partitions a
+(Z, Y, X) voxel grid over a named ("z", "y") ``jax.sharding.Mesh`` and
+runs each stage under ``shard_map``; the port keeps the same partition
+explicitly: a ``Mesh`` is a (nz_m, ny_m) grid of ``torch.device``s and a
+``ShardedVolume`` holds one (Z/nz_m, Y/ny_m, X) block per grid cell, on
+that cell's device.  X (the fastest axis) stays whole, so every stencil
+along X is local; stencils across a z or y block boundary take halo
+rows from the neighbouring blocks (``parallel.halo``).
 
 A grid may name one device more than once: the CPU tests build an
 8-block mesh on ``cpu`` and ``chip_smoke.py`` a (2, 2) mesh on one
 card.  What a block holds does not depend on where it lives.
+
+In a multi-process cluster (``parallel.distributed``) the grid is drawn
+from every rank's devices, in rank order, and each cell belongs to the
+rank of its device (``Mesh.ranks``).  A ``ShardedVolume`` holds the
+blocks of its own rank and ``None`` for the others; ``cells``,
+``with_blocks``, ``bmap``, ``shard``, ``place``, ``gather_flat`` and
+``scatter_flat`` touch the local blocks only.  With one process every
+block is local.
 """
 
 from __future__ import annotations
@@ -24,19 +31,45 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from visfd_tpu_torch.parallel import distributed as D
+
 AXIS_NAMES = ("z", "y")
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A (nz_m, ny_m) grid of torch devices with axis names ("z", "y")."""
+    """A (nz_m, ny_m) grid of torch devices with axis names ("z", "y").
+    ``ranks`` gives each cell's owning process (None: all of them this
+    one's), ``rank`` this process; a cell of another rank names that
+    rank's device."""
 
     devices: Tuple[Tuple[torch.device, ...], ...]
     axis_names: Tuple[str, str] = AXIS_NAMES
+    ranks: Optional[Tuple[Tuple[int, ...], ...]] = None
+    rank: int = 0
 
     @property
     def shape(self) -> Tuple[int, int]:
         return len(self.devices), len(self.devices[0])
+
+    def owner(self, iz: int, iy: int) -> int:
+        return self.rank if self.ranks is None else self.ranks[iz][iy]
+
+    def is_local(self, iz: int, iy: int) -> bool:
+        return self.owner(iz, iy) == self.rank
+
+    @property
+    def spans_processes(self) -> bool:
+        """True when another rank owns a cell: halos, gathers and
+        reductions then cross ranks."""
+        return self.ranks is not None and any(
+            r != self.rank for row in self.ranks for r in row)
+
+    def all_cells(self):
+        """(iz, iy) of every cell, local or not, z-major: the one order
+        in which every rank walks a cross-rank plan."""
+        nz_m, ny_m = self.shape
+        return [(iz, iy) for iz in range(nz_m) for iy in range(ny_m)]
 
 
 def _grid_shape(n: int) -> Tuple[int, int]:
@@ -51,21 +84,50 @@ def _grid_shape(n: int) -> Tuple[int, int]:
 
 def make_mesh(n_devices: Optional[int] = None,
               devices: Optional[Sequence] = None) -> Mesh:
-    """A (z, y) mesh over ``devices`` (default: every visible CUDA card),
-    of which the first ``n_devices`` are used, like the JAX package's
-    ``devs[:n_devices]``.  ``devices`` may repeat a device."""
+    """A (z, y) mesh over ``devices`` (default: every visible CUDA card;
+    in an NCCL cluster, the rank's card), of which the first
+    ``n_devices`` are used, like the JAX package's ``devs[:n_devices]``.
+    ``devices`` may repeat a device.  In a multi-process cluster
+    ``devices`` are this rank's, and the grid is drawn from every
+    rank's, all-gathered in rank order (as ``jax.devices()`` orders
+    them): block (iz, iy) goes to global device ``iz * ny_m + iy``.
+    Every rank must own a block, and under NCCL a rank drives one
+    card."""
     if devices is None:
-        if not torch.cuda.is_available():
+        if D.backend() == "nccl":
+            devices = [D.comm_device()]
+        elif not torch.cuda.is_available():
             raise RuntimeError("visfd_tpu_torch: no CUDA device is visible "
                                "to build a -mesh over")
-        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+        else:
+            devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
     devs = [torch.device(d) for d in devices]
+    owners = [0] * len(devs)
+    if D.backend() == "nccl" and len(set(devs)) > 1:
+        raise ValueError(f"make_mesh: under NCCL a rank drives one card; "
+                         f"got {[str(d) for d in devs]}")
+    if D.backend() is not None:
+        names = D.allgather_arrays(np.frombuffer(
+            "\n".join(str(d) for d in devs).encode(), np.uint8))
+        per_rank = [bytes(n).decode().split("\n") for n in names]
+        devs = [torch.device(d) for names_r in per_rank for d in names_r]
+        owners = [r for r, names_r in enumerate(per_rank) for _ in names_r]
     if n_devices is not None:
-        devs = devs[:n_devices]
+        devs, owners = devs[:n_devices], owners[:n_devices]
     if not devs:
         raise ValueError("make_mesh needs at least one device")
     nz, ny = _grid_shape(len(devs))
-    return Mesh(tuple(tuple(devs[iz * ny:(iz + 1) * ny]) for iz in range(nz)))
+    grid = tuple(tuple(devs[iz * ny:(iz + 1) * ny]) for iz in range(nz))
+    if D.backend() is None:
+        return Mesh(grid)
+    idle = sorted(set(range(D.process_count())) - set(owners))
+    if idle:
+        raise ValueError(f"make_mesh: {len(devs)} devices leave process(es) "
+                         f"{idle} of {D.process_count()} without a block; "
+                         f"every process needs one")
+    return Mesh(grid, ranks=tuple(tuple(owners[iz * ny:(iz + 1) * ny])
+                                  for iz in range(nz)),
+                rank=D.process_index())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,13 +135,18 @@ class ShardedVolume:
     """A volume of global ``shape`` (C..., Z, Y, X) split into (z, y)
     blocks: ``blocks[iz][iy]`` is (C..., Z/nz_m + 2 hz, Y/ny_m + 2 hy, X)
     on ``mesh.devices[iz][iy]``, where ``halo = (hz, hy)`` counts the
-    neighbour rows a halo exchange added (0 for a plain partition).
-    The leading channel axes (``lead`` of them) are never split."""
+    neighbour rows a halo exchange added (0 for a plain partition), or
+    None where another rank owns the cell.  The leading channel axes
+    (``lead`` of them) are never split.  ``ghosts`` holds the rows of
+    other ranks' blocks that ``parallel.halo.with_ghosts`` received:
+    {(jz, jy): [(z0, z1, y0, y1, tensor)]}, block-local planes and
+    rows."""
 
-    blocks: Tuple[Tuple[torch.Tensor, ...], ...]
+    blocks: Tuple[Tuple[Optional[torch.Tensor], ...], ...]
     mesh: Mesh
     shape: Tuple[int, ...]
     halo: Tuple[int, int] = (0, 0)
+    ghosts: Optional[dict] = dataclasses.field(default=None, compare=False)
 
     @property
     def lead(self) -> int:
@@ -92,24 +159,34 @@ class ShardedVolume:
         z, y = self.shape[self.lead:self.lead + 2]
         return z // nz_m, y // ny_m
 
+    @property
+    def local_block(self) -> torch.Tensor:
+        """The first block this process holds (for its device and
+        dtype)."""
+        return next(b for _, _, b in self.cells())
+
     def cells(self):
-        """(iz, iy, block) for every block, z-major."""
+        """(iz, iy, block) for every block this process holds,
+        z-major."""
         for iz, row in enumerate(self.blocks):
             for iy, b in enumerate(row):
-                yield iz, iy, b
+                if b is not None:
+                    yield iz, iy, b
 
     def with_blocks(self, fn: Callable[[int, int, torch.Tensor],
                                        torch.Tensor]) -> "ShardedVolume":
         """A volume of the same partition whose blocks are
         ``fn(iz, iy, block)`` (shapes then taken from the new blocks)."""
-        return from_blocks([[fn(iz, iy, b) for iy, b in enumerate(row)]
+        return from_blocks([[None if b is None else fn(iz, iy, b)
+                             for iy, b in enumerate(row)]
                             for iz, row in enumerate(self.blocks)],
                            self.mesh)
 
 
 def from_blocks(blocks, mesh: Mesh) -> ShardedVolume:
-    """A ShardedVolume from a [iz][iy] grid of un-haloed blocks."""
-    b0 = blocks[0][0]
+    """A ShardedVolume from a [iz][iy] grid of un-haloed blocks (None
+    where another rank owns the cell)."""
+    b0 = next(b for row in blocks for b in row if b is not None)
     lead = b0.ndim - 3
     nz_m, ny_m = mesh.shape
     shape = (tuple(b0.shape[:lead]) + (b0.shape[lead] * nz_m,
@@ -137,6 +214,10 @@ def shard(x, mesh: Mesh, lead: int = 0) -> ShardedVolume:
     pre = (slice(None),) * lead
     blocks = []
     for iz, row in enumerate(mesh.devices):
+        local = [iy for iy in range(ny_m) if mesh.is_local(iz, iy)]
+        if not local:
+            blocks.append([None] * ny_m)
+            continue
         slab = x[pre + (slice(iz * bz, (iz + 1) * bz),)]
         if isinstance(slab, np.ndarray):
             # one host-to-device copy of the z slab (contiguous for a
@@ -145,11 +226,11 @@ def shard(x, mesh: Mesh, lead: int = 0) -> ShardedVolume:
             with warnings.catch_warnings():
                 warnings.simplefilter("ignore", UserWarning)
                 slab = torch.from_numpy(np.ascontiguousarray(slab))
-            slab = slab.to(row[0])
+            slab = slab.to(row[local[0]])
         blocks.append([slab[pre + (slice(None),
                                    slice(iy * by, (iy + 1) * by))].to(
             dev, torch.float32, copy=True).contiguous()
-            for iy, dev in enumerate(row)])
+            if iy in local else None for iy, dev in enumerate(row)])
     return from_blocks(blocks, mesh)
 
 
@@ -187,7 +268,8 @@ def _block_of(vol: ShardedVolume, flat: np.ndarray):
 
 def gather_flat(vol: ShardedVolume, flat) -> np.ndarray:
     """The values of a (Z, Y, X) volume at global raster indices, as a
-    host array: each block gathers its own on its device."""
+    host array: each block gathers its own on its device (0 at the
+    indices of other ranks' blocks)."""
     flat = np.asarray(flat, np.int64)
     bzi, byi, loc = _block_of(vol, flat)
     out = None
@@ -195,7 +277,7 @@ def gather_flat(vol: ShardedVolume, flat) -> np.ndarray:
         sel = (bzi == iz) & (byi == iy)
         vals = b.reshape(-1)[torch.as_tensor(loc[sel], device=b.device)]
         if out is None:
-            out = np.empty(len(flat), vals.cpu().numpy().dtype)
+            out = np.zeros(len(flat), vals.cpu().numpy().dtype)
         out[sel] = vals.cpu().numpy()
     return out
 

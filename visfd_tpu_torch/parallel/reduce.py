@@ -15,6 +15,13 @@ sort the in-mask saliencies descending and take entry
   package does with ``psum``: each block counts its own keys
   (``torch.bincount``), the 256 counts are summed on the host, and the
   target bin pins the next byte.  No block is gathered or sorted.
+
+Across the ranks of a multi-process cluster (``parallel.distributed``)
+the counts are all-reduced as int64, so ``-tv-best`` keeps the same
+threshold bit for bit, and ``global_min_max_mean`` folds every block's
+(min, max, float64 sum, count), all-gathered, in z-major block order,
+so its mean does not depend on how the blocks are spread over ranks.
+Every rank calls these functions on a volume that spans ranks.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from visfd_tpu_torch.parallel import distributed as D
 from visfd_tpu_torch.parallel.mesh import Mesh, ShardedVolume, shard
 
 
@@ -50,24 +58,39 @@ def _blocks(x, mask) -> list:
     return [(x, None if mask is None else mask != 0)]
 
 
+def _spans(x) -> bool:
+    return isinstance(x, ShardedVolume) and x.mesh.spans_processes
+
+
 def count_valid(x, mask=None) -> int:
     """The number of in-mask voxels of ``x``."""
-    return sum(int(v.numel() if ok is None else ok.sum())
-               for v, ok in _blocks(x, mask))
+    n = sum(int(v.numel() if ok is None else ok.sum())
+            for v, ok in _blocks(x, mask))
+    return int(D.allreduce_sum(np.int64(n))) if _spans(x) else n
 
 
 def global_min_max_mean(x, mask=None) -> Tuple[float, float, float]:
     """(min, max, mean) over the in-mask voxels (``MrcSimple::
     FindMinMaxMean``, ``mrc_simple.hpp:100-121``); the sum is taken in
-    float64."""
-    vmin, vmax, vsum, cnt = np.inf, -np.inf, 0.0, 0
-    for v, ok in _blocks(x, mask):
+    float64, block by block in z-major order."""
+    cells = (list(x.cells()) if isinstance(x, ShardedVolume)
+             else [(0, 0, x)])
+    stats = []      # (cell, min, max, sum, count) of each non-empty block
+    for (iz, iy, _), (v, ok) in zip(cells, _blocks(x, mask)):
         vals = v.reshape(-1) if ok is None else v[ok]
         if vals.numel():
-            vmin = min(vmin, float(vals.min()))
-            vmax = max(vmax, float(vals.max()))
-            vsum += float(vals.double().sum())
-            cnt += vals.numel()
+            stats.append((iz * 65536 + iy, float(vals.min()),
+                          float(vals.max()), float(vals.double().sum()),
+                          vals.numel()))
+    stats = np.asarray(stats, np.float64).reshape(-1, 5)
+    if _spans(x):
+        stats = D.allgather_concat(stats)
+        stats = stats[np.argsort(stats[:, 0], kind="stable")]
+    vmin, vmax, vsum, cnt = np.inf, -np.inf, 0.0, 0
+    for _, lo, hi, total, n in stats:
+        vmin, vmax = min(vmin, lo), max(vmax, hi)
+        vsum += total
+        cnt += int(n)
     return vmin, vmax, vsum / max(cnt, 1)
 
 
@@ -89,6 +112,8 @@ def kth_largest(x, k: int, mask=None) -> float:
             bytes_.append(byte)
         # every block's count is queued before the first is read back
         hist = sum(h[:256].cpu().numpy() for h in hists)
+        if _spans(x):
+            hist = D.allreduce_sum(hist.astype(np.int64))
         # c[b] = count with byte >= b; the target bin is the largest b
         # with c[b] > kk
         c = np.cumsum(hist[::-1])[::-1]

@@ -1,6 +1,6 @@
 """Sharded voxel pipelines: the per-shard kernels with halo exchange.
 
-Port of ``visfd_tpu/parallel/sharded.py`` for one process.  The volume
+Port of ``visfd_tpu/parallel/sharded.py``.  The volume
 is a ``ShardedVolume`` of (z, y) blocks (``parallel.mesh``); every
 stencil stage copies its halo rows from the neighbouring blocks
 (``parallel.halo``, outside the kernels) and runs the per-shard CUDA
@@ -21,27 +21,33 @@ card.
 * ``sym3_score_sharded``: the vote-tensor eigen kernel on each block
   (voxelwise: no halo), with the principal vector under ``-connect``;
 * ``gradient_sharded``: the FD gradient of ``-edge``, each block read
-  with a 2-deep halo (``features.hessian.fd_slab``).
+  with a 2-deep halo (``features.hessian.fd_slab``);
+* ``make_membrane_step``: the JAX package's flagship step composed from
+  the stages above (blur, Hessian, threshold, voting, stick score).
 
-``make_membrane_step`` and the XLA-loop ``_sharded_tv`` of the JAX
-package are not ported: they need ``diagonalize_sym3``.
+Each stage walks the blocks of its own rank; over a mesh that spans
+ranks the halo rows of other ranks' blocks come through
+``parallel.halo.with_ghosts``, so every rank runs every stage.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from visfd_tpu_torch.features.hessian import fd_slab, gradient_fd_padded
+from visfd_tpu_torch.ops import kernels as K
 from visfd_tpu_torch.ops.blur_cuda import blur3
 from visfd_tpu_torch.ops.conv import _ones_denom_1d
 from visfd_tpu_torch.ops.eigen_cuda import (
     _n_score_channels, hessian_principal_block, sym3_score)
 from visfd_tpu_torch.ops.tv_cuda import tv_tables, tv_votes_prepadded
-from visfd_tpu_torch.parallel.halo import face_halos, halo_pad_2d, haloed_block
+from visfd_tpu_torch.parallel.halo import (
+    _rows, face_halos, halo_pad_2d, haloed_block, with_ghosts)
 from visfd_tpu_torch.parallel.mesh import (
-    Mesh, ShardedVolume, bmap, from_blocks)
+    Mesh, ShardedVolume, bmap, from_blocks, shard)
 
 
 def grid_mesh_of(x) -> Optional[Mesh]:
@@ -54,13 +60,15 @@ def grid_mesh_of(x) -> Optional[Mesh]:
 
 
 def _unzip(results, mesh: Mesh):
-    """A [iz][iy] grid of per-block tuples -> a tuple of volumes (None
-    where the blocks' entry is None)."""
-    n = len(results[0][0])
+    """A [iz][iy] grid of per-block tuples (None for another rank's
+    block) -> a tuple of volumes (None where the blocks' entry is
+    None)."""
+    r0 = next(r for row in results for r in row if r is not None)
     return tuple(
-        None if results[0][0][j] is None else
-        from_blocks([[r[j] for r in row] for row in results], mesh)
-        for j in range(n))
+        None if r0[j] is None else
+        from_blocks([[None if r is None else r[j] for r in row]
+                     for row in results], mesh)
+        for j in range(len(r0)))
 
 
 def _blur3_sharded(vol: ShardedVolume, ks) -> ShardedVolume:
@@ -117,18 +125,27 @@ def _clamp_faces_sharded(vol: ShardedVolume) -> None:
     """``ops.eigen_cuda.clamp_faces`` on the y and z faces of a sharded
     (C, Z, Y, X) volume whose x faces are clamped, in place: y, then z
     across blocks (a face row comes from the next block when a block is
-    one row thick)."""
+    one row thick, through ``with_ghosts`` when another rank holds
+    it)."""
     nz_m, ny_m = vol.mesh.shape
+    bz, by = vol.block_shape
     for axis in (1, 0):
         t = vol.lead + axis
         n, bs = vol.shape[t], vol.block_shape[axis]
+        src_vol = vol if bs > 1 else with_ghosts(
+            vol, *((0, 1) if axis == 1 else (1, 0)))
         for dst, src in ((0, 1), (n - 1, n - 2)):
             for i_other in range(nz_m if axis == 1 else ny_m):
-                def block(g):
-                    i = g // bs
-                    return (vol.blocks[i_other][i] if axis == 1
-                            else vol.blocks[i][i_other]).select(t, g % bs)
-                block(dst).copy_(block(src))
+                def cell(g):
+                    return (i_other, g // bs) if axis == 1 else (g // bs,
+                                                                 i_other)
+                b = vol.blocks[cell(dst)[0]][cell(dst)[1]]
+                if b is None:
+                    continue
+                r = src % bs
+                box = ((0, bz, r, r + 1) if axis == 1 else (r, r + 1, 0, by))
+                row = _rows(src_vol, *cell(src), *box).to(b.device)
+                b.select(t, dst % bs).copy_(row.select(t, 0))
 
 
 def hessian_principal_sharded(
@@ -144,8 +161,10 @@ def hessian_principal_sharded(
     block), then the global y and z faces are clamped on the assembled
     result (the kernel clamps x).  Returns (score, v) as ShardedVolumes
     with the conventions of ``ops.eigen_cuda.hessian_principal``."""
+    ghosted = with_ghosts(blur, 1, 1)
+
     def cell(iz, iy, b):
-        return hessian_principal_block(b, *face_halos(blur, iz, iy), sigma,
+        return hessian_principal_block(b, *face_halos(ghosted, iz, iy), sigma,
                                        decreasing, formula, want_v)
     out = blur.with_blocks(cell)
     _clamp_faces_sharded(out)
@@ -184,7 +203,7 @@ def tv_accumulate_sharded(
     def xpad(t):
         return None if t is None else torch.nn.functional.pad(t, (hw, hw))
 
-    results = [[tv_votes_prepadded(
+    results = [[None if sal_h[iz][iy] is None else tv_votes_prepadded(
         xpad(sal_h[iz][iy]), xpad(nv_h[iz][iy]), sigma, out_shape,
         exponent=exponent,
         mask_pad=None if m_h is None else xpad(m_h[iz][iy]),
@@ -205,7 +224,8 @@ def sym3_score_sharded(
     Returns (score, v|None) as ShardedVolumes."""
     if t6.shape[0] != 6:
         raise ValueError("t6 must be channel-major (6, Z, Y, X)")
-    results = [[sym3_score(b, decreasing, formula, want_v) for b in row]
+    results = [[None if b is None else sym3_score(b, decreasing, formula,
+                                                   want_v) for b in row]
                for row in t6.blocks]
     return _unzip(results, t6.mesh)
 
@@ -216,10 +236,54 @@ def gradient_sharded(smoothed: ShardedVolume) -> ShardedVolume:
     neighbours through a 2-deep halo, the volume's faces taking the
     stencil of the nearest interior voxel."""
     bz, by = smoothed.block_shape
+    ghosted = with_ghosts(smoothed, 2, 2)
 
     def cell(iz, iy, b):
-        return fd_slab(haloed_block(smoothed, iz, iy, 2), iz * bz,
+        return fd_slab(haloed_block(ghosted, iz, iy, 2), iz * bz,
                        (iz + 1) * bz, iy * by, (iy + 1) * by,
                        (iz * bz - 2, iy * by - 2), smoothed.shape,
                        gradient_fd_padded).movedim(-1, 0)
     return smoothed.with_blocks(cell)
+
+
+def make_membrane_step(
+    mesh: Mesh,
+    sigma: float = 2.0,
+    tv_sigma: float = 2.0,
+    tv_exponent: int = 4,
+    saliency_threshold: float = 0.0,
+    truncate_ratio: float = 2.5,
+    tv_truncate_ratio: float = float(np.sqrt(2.0)),
+    tv_sparse: bool = False,
+):
+    """The flagship membrane step over ``mesh`` (the JAX package's
+    ``make_membrane_step``): Gaussian blur (halfwidth
+    ``max(1, floor(sigma * truncate_ratio))``, edge-normalised), the
+    Hessian x sigma^2 and its planar score and principal vector, the
+    scores below ``saliency_threshold`` zeroed, stick voting and the
+    vote's stick score, each stage per block with its halos.
+
+    Returns (step, shard_input): ``step(x)`` takes a ShardedVolume
+    (``shard_input(array)`` makes one) and returns (stick (Z, Y, X),
+    vote) as ShardedVolumes.  Unlike the JAX step's channel-last
+    (Z, Y, X, 6), the vote is channel-major (6, Z, Y, X), the layout
+    the voting kernel writes.  ``tv_sparse`` runs the sparse voting
+    kernel (the same bits).  The JAX step's ``tv_use_pallas`` has no
+    counterpart: the per-shard kernels always run."""
+    hw = max(1, int(np.floor(sigma * truncate_ratio)))
+    k1 = K.gauss_kernel_1d(sigma, hw)
+
+    def step(x: ShardedVolume):
+        blur = separable_conv3d_sharded(x, (k1, k1, k1))
+        score, direction = hessian_principal_sharded(
+            blur, sigma, decreasing=True, formula="planar", want_v=True)
+        del blur
+        score = bmap(lambda sc: torch.where(sc < saliency_threshold, 0.0, sc),
+                     score)
+        vote, _ = tv_accumulate_sharded(
+            score, direction, None, tv_sigma, tv_exponent, False,
+            tv_truncate_ratio, False, sparse=tv_sparse)
+        stick, _ = sym3_score_sharded(vote, decreasing=True, formula="stick")
+        return stick, vote
+
+    return step, lambda a: shard(a, mesh)

@@ -43,7 +43,12 @@ threshold, values no consumer reads).  Under ``-mesh`` the inputs are
 ShardedVolumes: the gates read each block with a 2-deep halo of the
 saliency, the seeds come from ``find_extrema`` on the blocks, and the
 candidates are compacted per block and merged into the single-device
-raster order before the same flood.
+raster order before the same flood.  Over a mesh that spans the ranks
+of a multi-process cluster each rank compacts its own blocks, the lists
+are all-gathered (their merge sorts on the global raster index, one per
+voxel, so the order they arrive in does not matter), and every rank runs
+the same flood on the same lists, as every process of the JAX package
+does after ``to_host_np``.
 
 ``_flood_python`` is the plain twin of the native flood (the tests hold
 one against the other); nothing on the main path runs it.
@@ -62,8 +67,9 @@ import torch
 from visfd_tpu_torch import native
 from visfd_tpu_torch.features.hessian import fd_slab, hessian_fd
 from visfd_tpu_torch.linalg import sym3
+from visfd_tpu_torch.parallel import distributed as D
 from visfd_tpu_torch.parallel.gather import to_host_np
-from visfd_tpu_torch.parallel.halo import haloed_block
+from visfd_tpu_torch.parallel.halo import haloed_block, with_ghosts
 from visfd_tpu_torch.parallel.mesh import ShardedVolume
 from visfd_tpu_torch.segment.extrema import (
     find_extrema, flat_to_xyz, neighbor_offsets)
@@ -157,11 +163,12 @@ def discard_gates(sal, tensor, vector, threshold_tensor, threshold_vector,
         return _gates(sal, (0, 0), sal.shape, 0, nz, 0, ny, tensor, vector,
                       *args)
     bz, by = sal.block_shape
+    ghosted = with_ghosts(sal, 2, 2)
 
     def cell(iz, iy, b):
-        return _gates(haloed_block(sal, iz, iy, 2), (iz * bz - 2, iy * by - 2),
-                      sal.shape, iz * bz, (iz + 1) * bz, iy * by,
-                      (iy + 1) * by,
+        return _gates(haloed_block(ghosted, iz, iy, 2),
+                      (iz * bz - 2, iy * by - 2), sal.shape, iz * bz,
+                      (iz + 1) * bz, iy * by, (iy + 1) * by,
                       None if tensor is None else tensor.blocks[iz][iy],
                       None if vector is None else vector.blocks[iz][iy],
                       *args)
@@ -296,7 +303,7 @@ def label_connected(
     sharded = isinstance(saliency, ShardedVolume)
     sal = saliency if sharded else torch.as_tensor(saliency,
                                                    dtype=torch.float32)
-    dev = sal.blocks[0][0].device if sharded else sal.device
+    dev = sal.local_block.device if sharded else sal.device
 
     def on_dev(t, dtype=torch.float32):
         if t is None or isinstance(t, ShardedVolume):
@@ -470,7 +477,8 @@ def _candidates_sharded(sal, discard, mask_t, tensor, vector,
                         threshold_saliency, sign, rep):
     """``compact_candidates`` block by block, each block's lists copied
     to the host with global (z, y, x), then merged into the
-    single-device raster order."""
+    single-device raster order (all-gathered first when the blocks span
+    ranks)."""
     bz, by = sal.block_shape
     lists = []
     with stage("connect: candidate mask + compaction + copy", rep):
@@ -489,6 +497,9 @@ def _candidates_sharded(sal, discard, mask_t, tensor, vector,
         parts = [None if p[0] is None else np.concatenate(p)
                  for p in zip(*lists)]
         del lists
+        if sal.mesh.spans_processes:
+            parts = [None if p is None else D.allgather_concat(p)
+                     for p in parts]
         zyx = parts[0]
         srt = np.argsort((zyx[:, 0] * ny + zyx[:, 1]) * nx + zyx[:, 2],
                          kind="stable")

@@ -30,6 +30,11 @@ its neighbours through a 1-voxel halo (``parallel.halo.halo1``):
 3. plateau-heavy inputs (integer-valued images): min-label propagation
    with pointer jumps on the device until nothing changes, then
    ``postprocess_extrema`` on the host.
+
+Over a mesh that spans ranks the halos come from
+``parallel.halo.with_ghosts``, the plateau-voxel count that picks the
+route is summed over the ranks, and the compacted lists are
+all-gathered before the merge: every rank returns the same lists.
 """
 
 from __future__ import annotations
@@ -42,9 +47,10 @@ import scipy.sparse
 import scipy.sparse.csgraph
 import torch
 
+from visfd_tpu_torch.parallel import distributed as D
 from visfd_tpu_torch.parallel.blocks import SENT, Geom, fixpoint, nb
 from visfd_tpu_torch.parallel.gather import to_host_np
-from visfd_tpu_torch.parallel.halo import halo1
+from visfd_tpu_torch.parallel.halo import halo1, with_ghosts
 from visfd_tpu_torch.parallel.mesh import ShardedVolume, as_blocks, bmap
 
 
@@ -195,10 +201,11 @@ def _extrema_device(xs, valid, offsets) -> ShardedVolume:
 
     def step(lab):
         flags = []
+        lab_g = with_ghosts(lab, 1, 1)
 
         def cell(iz, iy, l0):
             xp, vp = pads[iz, iy]
-            lp = halo1(lab, iz, iy, SENT)
+            lp = halo1(lab_g, iz, iy, SENT)
             c, new = nb(xp, (0, 0, 0)), l0
             for off in offsets:
                 eq = nb(vp, off) & (nb(xp, off) == c)
@@ -252,7 +259,9 @@ def find_extrema(
     else:
         valid = bmap(lambda m: m != 0, mask if isinstance(
             mask, ShardedVolume) else as_blocks(torch.as_tensor(
-                mask, device=xs.blocks[0][0].device)))
+                mask, device=xs.local_block.device)))
+    spans = xs.mesh.spans_processes
+    xs, valid = with_ghosts(xs, 1, 1), with_ghosts(valid, 1, 1)
     offs = neighbor_offsets(connectivity)
     _, ny, nx = xs.shape
     bz, by = xs.block_shape
@@ -265,6 +274,8 @@ def find_extrema(
         f[3] &= _relevant(b, t32_min, t32_max, find_minima, find_maxima)
         n_same += int(f[3].sum())
         flags[iz, iy] = f
+    if spans:
+        n_same = int(D.allreduce_sum(np.int64(n_same)))
     if n_same * max(len(offs), 1) > int(np.prod(xs.shape)) // 8:
         # plateau-heavy (integer-valued / flat-background images)
         host = [to_host_np(xs.with_blocks(
@@ -298,6 +309,19 @@ def find_extrema(
                   for t in (lt, gt, bd, same)), offs)
             g[0] = g[0] - 1 + np.array([iz * bz, iy * by, 0])
             gathered.append(g)
+    if spans:
+        # every rank's lists, with the shapes of an empty one where a
+        # rank found none
+        n_o = len(offs)
+        empty = [np.zeros((0, 3), np.int64), np.zeros(0, np.float32)] + [
+            np.zeros(0, bool)] * 3 + [np.zeros((0, n_o), bool)]
+        gathered = [[D.allgather_concat(np.concatenate(p)) for p in zip(
+            *(gathered or [empty]))]]
+        if not len(gathered[0][0]):
+            gathered = []
+        for kind, (idx, sc) in singles.items():
+            singles[kind] = ([D.allgather_concat(np.concatenate(idx))],
+                             [D.allgather_concat(np.concatenate(sc))])
     plateaus: List[tuple] = []
     if gathered:
         parts = [np.concatenate(p) for p in zip(*gathered)]

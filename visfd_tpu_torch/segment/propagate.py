@@ -437,7 +437,11 @@ def propagate_watershed(
     blocks).  ``markers`` (host array): a label image whose first-seen
     voxel per positive label seeds a basin.  ``show_boundaries``: the
     Meyer flood's basin-collision boundaries (``meyer_boundaries``).
-    ``labels`` of the result take the form of ``source`` (int64)."""
+    ``labels`` of the result take the form of ``source`` (int64).  A
+    mesh that spans ranks is refused (its host merges are not ported)."""
+    if isinstance(source, ShardedVolume) and source.mesh.spans_processes:
+        raise NotImplementedError("propagate_watershed over a multi-process "
+                                  "mesh is not ported")
     x = source if isinstance(source, ShardedVolume) else \
         torch.as_tensor(source, dtype=torch.float32)
     if not start_from_minima:
