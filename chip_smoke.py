@@ -7,7 +7,8 @@
 Phase 11 (``--nccl``, ``phase_cards``): ``-mesh`` over NCCL with one
 card a rank (two ranks, then one on every card), 5c's command at 537M
 and 6c's ``-connect``, each against the one-process ``-mesh`` over the
-same cards bit for bit; its last line ``{"ok": ..., "cards": n}``.
+same cards bit for bit, each rank's gather no faster than 900 GB/s on
+its exchanges' clock; its last line ``{"ok": ..., "cards": n}``.
 
 Phases:
 
@@ -164,6 +165,24 @@ Phases:
     ``entry.dryrun_multichip(4)`` on the card; (10e)
     ``utils.profiling.device_trace`` around phase 3's command: the
     trace's kernel events and the card's busy share of the wall.
+12. every other handler in a cluster: two gloo ranks on the one card,
+    blocks on ``["cuda:0"] * 2`` each (``phase_cluster_handlers``, all
+    commands in one spawn, the host's cores shared between the ranks):
+    (12a) 8b's ``-blob`` at 1024 x 1024 x 512 with ``-mesh -1``, the
+    list and the image bit for bit 8b's, each rank's ``blur3`` launches
+    twice 8b's (one a block), the wall, the spans (LoG ladder, extremum
+    test, candidate merge), the exchanges, peak card memory and host
+    RSS, the card's free memory checked first; (12b)
+    ``-watershed-device -watershed-hide-boundaries`` at 512 x 512 x 256
+    against one process ``-mesh 4``, the bytes the pointer jumping's
+    all-gather receives a rank; (12c) on 128 x 128 x 64 inputs (a
+    phantom, a corner of 8b's input and 8b's blobs in it):
+    ``-watershed-device`` with its boundaries, ``-find-minima``, the host
+    ``-watershed``, ``-discard-blobs`` on 8b's list, ``-draw-spheres``,
+    ``-distance-points``, ``-random-spheres`` and
+    ``-blob-radial-intensity``, each against one process ``-mesh 4``;
+    every file rank 0 writes (text lists included) compared, rank 1
+    writing none.
 
 A failed check is reported where it happens and the later phases still
 run; the script then exits non-zero without a result line.  On success
@@ -178,7 +197,7 @@ one device, from 6c, and one per block, from 7d's ``-mesh`` run; the
 blur's per-axis mode counts 8e's ``-gauss 21`` run, the dense kernel
 8e's ``-ggauss`` run, its (1, Ky, Kx) mode 9a's ``-doggxy`` run and its
 31^3 mode 9a's ``-template-gauss`` run; ``cluster_launches``: each
-rank's launches in 10a) and
+rank's launches in 10a and 12a) and
 the last line ``{"ok": true, "device": {...}}``.  TF32
 is turned off for cuDNN and matmuls (the twins use neither; the
 library yardsticks are timed in float32).
@@ -3541,6 +3560,14 @@ def cluster_rank(spec_path: str) -> int:
     TFM.mrc.write_mrc = spy(TFM.mrc.write_mrc)
     TFM.write_oriented_pointcloud_ply = spy(
         TFM.write_oriented_pointcloud_ply)
+    TFM.write_blob_coords_file = spy(TFM.write_blob_coords_file)
+
+    def spy_open(path, mode="r", *a, **k):
+        # filter_mrc's own text files (lists, distances, profiles)
+        if any(c in mode for c in "wax+"):
+            writes.append(str(path))
+        return open(path, mode, *a, **k)
+    TFM.open = spy_open
     results = []
     for run in spec["runs"]:
         writes.clear()
@@ -3585,8 +3612,11 @@ def _spawn_cluster(tmp, n, backend, runs, dev, timeout=RANK_TIMEOUT):
     spec = os.path.join(tmp, f"cluster_{port}.json")
     json.dump({"backend": backend, "timeout": timeout, "runs": runs,
                "device": dev}, open(spec, "w"))
+    # the host's cores shared between the ranks: torch's host threads
+    # spin, and ranks that oversubscribe the cores stall each other
     env = dict(os.environ, VISFD_COORDINATOR=f"127.0.0.1:{port}",
-               VISFD_NUM_PROCESSES=str(n))
+               VISFD_NUM_PROCESSES=str(n),
+               OMP_NUM_THREADS=str(max(1, (os.cpu_count() or n) // n)))
     code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
             f"sys.exit(chip_smoke.cluster_rank({spec!r}))")
     # each rank's output goes to files: a rank blocked on a full pipe
@@ -3671,11 +3701,13 @@ def _tv_launches(blocks):
 def _cluster_checks(chk, label, recs, want_writes, want_launches):
     """Rank 0 wrote ``want_writes``, the other ranks nothing; each rank
     launched the kernels ``want_launches`` counts."""
-    chk.check(all(rec["rc"] == 0 for rec in recs)
-              and recs[0]["writes"] == want_writes
+    w0 = recs[0]["writes"]
+    chk.check(all(rec["rc"] == 0 for rec in recs) and w0 == want_writes
               and all(rec["writes"] == [] for rec in recs[1:]),
-              f"{label}: rank 0 wrote {recs[0]['writes']}, the others "
-              f"{[rec['writes'] for rec in recs[1:]]}")
+              f"{label}: rank 0 wrote {len(w0)} files "
+              f"{[os.path.basename(f) for f in w0[:3]]}"
+              f"{' ...' if len(w0) > 3 else ''} ({len(want_writes)} "
+              f"expected), the others {[rec['writes'] for rec in recs[1:]]}")
     for r, rec in enumerate(recs):
         n = rec["launches"]
         chk.check(all(n[k] == v for k, v in want_launches.items()),
@@ -3861,6 +3893,176 @@ def phase_cluster(chk, card, tmp, mesh_files, thr, dev="cuda"):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: every other handler in a multi-process cluster
+
+C12_WS_SHAPE = MAIN_SHAPE       # 12b: -watershed-device against -mesh 4
+C12_SMALL = (64, 128, 128)      # 12c's inputs
+C12_TIMEOUT = 360               # s: a child rank of phase 12
+BLOB_CARD_GIB = 23.0            # 8b's peak card memory (PERF.md section 5)
+
+
+def _blobs_inside(stem, shape, path):
+    """The lines of 8b's list whose centres lie inside a (Z, Y, X)
+    corner of its input, written to ``path``; their number."""
+    n = 0
+    with open(stem + ".txt") as src, open(path, "w") as dst:
+        for line in src:
+            xyz = np.array(line.split()[:3], np.float64) / BLOB_W
+            if np.all((xyz >= 0) & (xyz <= np.array(shape[::-1]) - 1)):
+                dst.write(line)
+                n += 1
+    return n
+
+
+def phase_cluster_handlers(chk, card, tmp, blob, dev="cuda"):
+    """12: the handlers phase 10 does not run, in two gloo ranks on the
+    card, each with blocks ``["cuda:0"] * RANK_BLOCKS`` (the (2, 2) grid
+    of 10a), every command in one spawn: (12a) 8b's ``-blob`` at
+    BLOB_SHAPE, the list and the image against 8b's; (12b)
+    ``-watershed-device -watershed-hide-boundaries`` at C12_WS_SHAPE
+    against one process ``-mesh 4``, with the bytes the pointer
+    jumping's all-gather moves; (12c) ``-watershed-device`` with its
+    boundaries, ``-find-minima``, the host ``-watershed``,
+    ``-discard-blobs`` on 8b's list, ``-draw-spheres``,
+    ``-distance-points``, ``-random-spheres`` and
+    ``-blob-radial-intensity`` on C12_SMALL inputs (a phantom, a corner
+    of 8b's input and its blobs), each against one process ``-mesh 4``.
+    Returns 12a's launches per rank."""
+    import torch
+    from visfd_tpu_torch.io import mrc
+
+    fin, fmask, stem, _, n_blur, _ = blob
+    blocks = [f"{dev}:0" if dev == "cuda" else dev] * RANK_BLOCKS
+    torch.cuda.empty_cache()
+    free, total = (torch.cuda.mem_get_info() if dev == "cuda"
+                   else (0, 0))
+    host = subprocess.run(["free", "-g"], capture_output=True, text=True)
+    print(f"== phase 12: the other handlers in a multi-process cluster, two "
+          f"ranks on {card.split(',')[0]} over gloo, blocks on {blocks} "
+          f"each; card memory free {free / 2**30:.2f} of "
+          f"{total / 2**30:.2f} GiB; host memory (free -g):\n"
+          f"{host.stdout.rstrip()}", flush=True)
+    if dev == "cuda":
+        chk.check(free >= 2 * BLOB_CARD_GIB * 2**30,
+                  f"12a: the card holds two ranks at 8b's peak "
+                  f"({BLOB_CARD_GIB} GiB each): {free / 2**30:.2f} GiB free")
+
+    def o(name):
+        return os.path.join(tmp, f"c12_{name}")
+    ws_in, seg, crop, blobs = o("ws_in.mrc"), o("seg.mrc"), o("crop.mrc"), \
+        o("blobs.txt")
+    mrc.write_mrc(ws_in, _seg_phantom(C12_WS_SHAPE, SEED + 120, dev))
+    mrc.write_mrc(seg, _seg_phantom(C12_SMALL, SEED + 121, dev))
+    mrc.write_mrc(crop, np.array(_mrc_view(fin)[:C12_SMALL[0],
+                                                :C12_SMALL[1],
+                                                :C12_SMALL[2]]))
+    n_in = _blobs_inside(stem, C12_SMALL, blobs)
+    w = ["-w", str(BLOB_W)]
+    hidden = ["-watershed-hide-boundaries"]
+
+    def runs(tag):
+        """(label, argv without -mesh, the files it writes)."""
+        def out(name):
+            return o(f"{tag}_{name}")
+        return [
+            ("12a -blob", ["-in", fin, "-mask", fmask, "-out", out("blob.mrc")]
+             + w + ["-blob", "minima", out("blob.txt")]
+             + BLOB_LADDER.split(), [out("blob.txt"), out("blob.mrc")]),
+            ("12b -watershed-device", ["-in", ws_in, "-out", out("wsd.mrc"),
+                                       "-w", "1", "-watershed", "minima",
+                                       "-watershed-device"] + hidden,
+             [out("wsd.mrc")]),
+            ("12c -watershed-device, boundaries",
+             ["-in", seg, "-out", out("wsb.mrc"), "-w", "1", "-watershed",
+              "minima", "-watershed-device"], [out("wsb.mrc")]),
+            ("12c -find-minima", ["-in", seg, "-out", out("fm.mrc"), "-w",
+                                  "1", "-find-minima", out("fm.txt")],
+             [out("fm.txt"), out("fm.mrc")]),
+            ("12c -watershed", ["-in", seg, "-out", out("ws.mrc"), "-w", "1",
+                                "-watershed", "minima"], [out("ws.mrc")]),
+            ("12c -discard-blobs", w + ["-discard-blobs", stem + ".txt",
+                                        out("nms.txt"), "-blob-separation",
+                                        "1.1"], [out("nms.txt")]),
+            ("12c -draw-spheres", ["-in", crop, "-out", out("draw.mrc")] + w
+             + ["-draw-spheres", blobs, "-foreground", "5"],
+             [out("draw.mrc")]),
+            ("12c -distance-points", ["-in", crop, "-out", out("dist.mrc")]
+             + w + ["-distance-points", blobs], [out("dist.mrc")]),
+            ("12c -random-spheres", ["-in", crop, "-out", out("rs.mrc")] + w
+             + ["-random-spheres", out("rs.txt"), "30", "100", "-10", "10",
+                str(SEED)], [out("rs.txt"), out("rs.mrc")]),
+            ("12c -blob-radial-intensity", ["-in", crop, "-out",
+                                            out("rad.mrc")]
+             + w + ["-blob-radial-intensity", "min", blobs, out("prof")],
+             [out(f"prof_{i + 1}.txt") for i in range(n_in)]
+             + [out("rad.mrc")])]
+
+    # the one-process references of 12b and 12c (8b is 12a's)
+    for lab, argv, _ in runs("one")[1:]:
+        rc, wall, rep = _run_cli(argv + ["-mesh", str(2 * RANK_BLOCKS)], dev,
+                                 mesh=blocks * 2)
+        chk.check(rc == 0, f"{lab} one process, -mesh 4: exit {rc}")
+        print(f"  {lab} one process, -mesh 4: wall {wall:.3f} s; "
+              f"{_spans(rep)} [{card}]", flush=True)
+    torch.cuda.empty_cache()
+    print(f"== phase 12a-12c: two ranks: 12a -blob minima {BLOB_LADDER} -w "
+          f"{BLOB_W} -mask at {'x'.join(map(str, BLOB_SHAPE[::-1]))} (8b's "
+          f"input), 12b -watershed-device at "
+          f"{'x'.join(map(str, C12_WS_SHAPE[::-1]))}, 12c at "
+          f"{'x'.join(map(str, C12_SMALL[::-1]))} ({n_in} of 8b's blobs in "
+          f"its corner)", flush=True)
+    t0 = time.perf_counter()
+    done = _spawn_cluster(tmp, 2, "gloo", [
+        {"label": lab, "argv": argv + ["-mesh", "-1"], "devices": blocks}
+        for lab, argv, _ in runs("two")], dev, timeout=C12_TIMEOUT)
+    print(f"  the two ranks: {time.perf_counter() - t0:.1f} s with their "
+          f"start-up", flush=True)
+    recs = _rank_results(chk, "12 two ranks over gloo", done)
+    launches = None
+    if recs is not None:
+        for i, ((lab, _, two), (_, _, one)) in enumerate(zip(runs("two"),
+                                                             runs("one"))):
+            rr = [recs[r]["runs"][i] for r in range(2)]
+            for r in range(2):
+                _print_rank(lab, r, rr[r], card)
+            want = _tv_launches(0)
+            if i == 0:
+                want["blur3"] = n_blur * RANK_BLOCKS
+                one = [stem + ".txt", stem + ".mrc"]
+            _cluster_checks(chk, lab, rr, two, want)
+            texts = [(a, b) for a, b in zip(two, one)
+                     if not a.endswith(".mrc")]
+            differ = [os.path.basename(a) for a, b in texts
+                      if open(a, "rb").read() != open(b, "rb").read()]
+            if texts:
+                chk.check(not differ, f"{lab}: the two ranks' {len(texts)} "
+                                      f"text files == one process's, byte "
+                                      f"for byte (differ: {differ})")
+            for a, b in zip(two, one):
+                if a.endswith(".mrc"):
+                    _same_files(chk, f"{lab}: two ranks' {os.path.basename(a)}"
+                                     f" == one process's", a, b)
+        launches = [recs[r]["runs"][0]["launches"] for r in range(2)]
+        jumps = [recs[r]["runs"][1]["traffic"].get("pointer jump", {})
+                 for r in range(2)]
+        want = int(np.prod(C12_WS_SHAPE)) // 2 * 4
+        secs = [round(j.get("seconds", 0.0), 3) for j in jumps]
+        chk.check(all(j.get("bytes_received") == want for j in jumps),
+                  f"12b: the pointer jumping's all-gather: "
+                  f"{[j.get('bytes_received') for j in jumps]} bytes "
+                  f"received a rank (the other rank's int32 parents, "
+                  f"{want}), in {secs} s [{card}]")
+    for tag in ("one", "two"):
+        for _, _, files in runs(tag)[1 if tag == "one" else 0:]:
+            for f in files:
+                if os.path.exists(f):
+                    os.unlink(f)
+    for f in (ws_in, seg, crop, blobs):
+        os.unlink(f)
+    return launches
+
+
 def _union_us(intervals):
     """Microseconds covered by the union of (start, end) intervals."""
     total, end = 0.0, -np.inf
@@ -3936,6 +4138,9 @@ def main() -> int:
         if mesh_cli is not None and connect is not None:
             cluster = chk.run(phase_cluster, chk, card, tmp, mesh_cli[1],
                               connect[0])
+        handlers = None
+        if blob is not None:
+            handlers = chk.run(phase_cluster_handlers, chk, card, tmp, blob)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     if chk.failed:
         print(f"chip_smoke: {len(chk.failed)} check(s) failed:",
@@ -3961,6 +4166,8 @@ def main() -> int:
     stats["blur3"]["err"] = worst(stats["blur3"]["err"],
                                   filt_stats["blur3"]["err"])
     errs = [small, main_errs, mesh_small]
+    # each rank's launches in 10a and 12a
+    ranks = [c for c in (cluster, handlers) if c is not None]
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         s = stats[name]
@@ -3973,9 +4180,9 @@ def main() -> int:
                         "bound_by": s["bound_by"],
                         "library_ms": s["library_ms"],
                         "library_shape": s.get("library_shape"),
-                        "cluster_launches": None if cluster is None
-                        or name not in cluster[0] else
-                        [c[name] for c in cluster]})
+                        "cluster_launches": None if not ranks
+                        or name not in ranks[0][0] else
+                        [sum(c[r][name] for c in ranks) for r in range(2)]})
     import torch
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -4029,6 +4236,15 @@ def phase_cards(chk, card, tmp, n, dev="cuda", backend="nccl"):
             runs = [rec["runs"][0] for rec in recs]
             for r, rec in enumerate(runs):
                 _print_rank(lab, r, rec, card)
+                # an exchange's clock holds its transfer: no faster than
+                # NVLink's 900 GB/s
+                g = rec["traffic"].get("gather", {})
+                nb = g.get("bytes_received", 0)
+                chk.check(g.get("seconds", 0.0) >= nb / 900e9,
+                          f"{lab} rank {r}: the gather's exchanges "
+                          f"{g.get('seconds', 0.0):.4f} s for {nb} bytes "
+                          f"received, at least {nb / 900e9:.4f} s at 900 "
+                          f"GB/s")
             chk.check(all(rec["backend"] == backend for rec in recs),
                       f"{lab}: backend {[rec['backend'] for rec in recs]}")
             _cluster_checks(chk, lab, runs, [two], _tv_launches(1))

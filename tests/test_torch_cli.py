@@ -185,12 +185,12 @@ def test_fraction_threshold_bit_identical(masked):
 @pytest.mark.parametrize("flag,env", [
     ("-load-progress-sharded p", False), ("-save-progress-sharded p", False),
     ("-gaus 2", False), ("-coords c.txt", False),
-    ("-find-minima f.txt -mesh 4", True)])
+    ("-save-progress-sharded p -mesh 4", True)])
 def test_cli_names_unhandled_flags(phantom, flag, env, monkeypatch):
-    """What the port still refuses names itself: the orbax checkpoints, a
-    misspelt flag, another tool's flag, and a handler that -mesh does not
-    run in a multi-process cluster (refused before the cluster is
-    joined, so nothing is contacted)."""
+    """What the port still refuses names itself: the orbax checkpoints
+    (in a multi-process cluster too, refused before the cluster is
+    joined, so nothing is contacted), a misspelt flag and another tool's
+    flag."""
     if env:
         monkeypatch.setenv("VISFD_COORDINATOR", "localhost:1234")
         monkeypatch.setenv("VISFD_NUM_PROCESSES", "2")

@@ -1,6 +1,6 @@
 """The port's multi-process layer (visfd_tpu_torch/parallel/distributed.py
-and the cross-rank halves of mesh, halo, gather, reduce, blocks and
-extrema) on the CPU over gloo, against the port in one process, the host
+and the cross-rank halves of mesh, halo, gather, reduce, blocks,
+extrema, the device watershed and the blob ladder) on the CPU over gloo, against the port in one process, the host
 oracle and the JAX package; the port's make_membrane_step, entry points,
 dry run and profiling helpers.
 
@@ -147,17 +147,22 @@ def test_one_process_cluster_serves_every_local_device():
 # for the one-process reference, here (``exec``), so one definition serves
 COMMON = """
 import numpy as np
+import torch
+from visfd_tpu_torch.features.blob import blob_dog
 from visfd_tpu_torch.parallel import halo as H
 from visfd_tpu_torch.parallel import reduce as TR
 from visfd_tpu_torch.parallel.gather import to_host_np
-from visfd_tpu_torch.parallel.mesh import shard
+from visfd_tpu_torch.parallel.mesh import gather_flat, shard
 from visfd_tpu_torch.parallel.sharded import make_membrane_step
 from visfd_tpu_torch.segment.extrema import find_extrema
+from visfd_tpu_torch.segment.propagate import propagate_watershed
 
 SCORE_SHAPE = (12, 12, 9)       # blocks (3, 6) on (4, 2), (4, 6) on (3, 2)
 HALO_SHAPE = (2, 12, 6, 5)      # blocks (3, 3) and (4, 3)
 HALO_CASES = [(1, 1), (4, 2), (7, 4)]  # up to 3 blocks deep
 FRACTIONS = (0.0, 0.05, 0.5, 1.0)
+FLAT = np.random.default_rng(8).permutation(int(np.prod(SCORE_SHAPE)))[:300]
+SIGMAS = (0.8, 1.0, 1.25, 1.5)
 
 
 def _fields():
@@ -169,6 +174,17 @@ def _fields():
     plateaus = np.round(rng.normal(size=SCORE_SHAPE) * 1.5).astype(
         np.float32)
     return score, mask, a, plateaus
+
+
+def _blob_field():
+    # Gaussian blobs of both signs, over several blocks, on noise
+    z, y, x = np.indices(SCORE_SHAPE)
+    f = 0.05 * np.random.default_rng(9).normal(size=SCORE_SHAPE)
+    for k, c in enumerate([(3, 3, 4), (6, 6, 4), (8, 9, 3), (4, 9, 5),
+                           (9, 3, 5), (6, 2, 2)]):
+        r2 = (z - c[0]) ** 2 + (y - c[1]) ** 2 + (x - c[2]) ** 2
+        f += (-1) ** k * np.exp(-r2 / (2 * 1.1 ** 2))
+    return f.astype(np.float32)
 
 
 def _results(mesh, fields):
@@ -208,12 +224,34 @@ def _results(mesh, fields):
                                            saliency_threshold=0.02)
     stick, vote = step(shard_input(score))
     res["step_stick"], res["step_vote"] = to_host_np(stick), to_host_np(vote)
+    res["gather_flat"] = gather_flat(s_vol, FLAT)
+    res["gather_flat_int"] = gather_flat(shard(plateaus, mesh).with_blocks(
+        lambda iz, iy, b: b.to(torch.int64)), FLAT)
+    markers = np.zeros(SCORE_SHAPE, np.int64)
+    markers.reshape(-1)[FLAT[:6]] = [3, 1, 4, 1, 5, 9]
+    for name, kw in (("ws", dict(mask=m_vol)),
+                     ("ws_plateaus", dict(source=shard(plateaus, mesh),
+                                          connectivity=3)),
+                     ("ws_markers", dict(markers=markers,
+                                         start_from_minima=False,
+                                         halt_threshold=1.0))):
+        r = propagate_watershed(**{"source": s_vol, "show_boundaries": True,
+                                   **kw})
+        res[name + "_labels"] = to_host_np(r.labels)
+        res[name + "_locations"] = r.basin_locations
+        res[name + "_scores"] = r.basin_scores
+    for kind, bl in zip(("min", "max"), blob_dog(
+            shard(_blob_field(), mesh), SIGMAS,
+            use_threshold_ratios=False)):
+        res[f"blob_{kind}_crds"] = bl.crds
+        res[f"blob_{kind}_sigmas"] = bl.diameters
+        res[f"blob_{kind}_scores"] = bl.scores
     return res
 """
 _COMMON = {}
 exec(COMMON, _COMMON)
-SCORE_SHAPE, FRACTIONS, HALO_CASES = (_COMMON[k] for k in (
-    "SCORE_SHAPE", "FRACTIONS", "HALO_CASES"))
+SCORE_SHAPE, FRACTIONS, HALO_CASES, FLAT = (_COMMON[k] for k in (
+    "SCORE_SHAPE", "FRACTIONS", "HALO_CASES", "FLAT"))
 _fields, _results = _COMMON["_fields"], _COMMON["_results"]
 
 
@@ -358,6 +396,41 @@ def test_two_ranks_find_extrema(two_ranks, one_process, name):
 def test_two_ranks_membrane_step(two_ranks, one_process):
     for res in two_ranks[0]:
         for k in ("step_stick", "step_vote"):
+            np.testing.assert_array_equal(res[k], one_process[k])
+
+
+@pytest.mark.parametrize("key", ["gather_flat", "gather_flat_int"])
+def test_two_ranks_gather_flat(two_ranks, one_process, key):
+    """Each index's value from the rank that owns its block, on every
+    rank: the host array's."""
+    score, _, _, plateaus = _fields()
+    field = score if key == "gather_flat" else plateaus.astype(np.int64)
+    for res in two_ranks[0]:
+        np.testing.assert_array_equal(res[key], one_process[key])
+        np.testing.assert_array_equal(res[key], field.reshape(-1)[FLAT])
+
+
+@pytest.mark.parametrize("name", ["ws", "ws_plateaus", "ws_markers"])
+def test_two_ranks_propagate_watershed(two_ranks, one_process, name):
+    """The device watershed with Meyer boundaries over blocks of both
+    ranks: a mask, integer plateaus (26-connected), markers on the
+    maxima with a halt: labels, basin locations and scores."""
+    keys = [f"{name}_{k}" for k in ("labels", "locations", "scores")]
+    assert one_process[name + "_labels"].max() > 3
+    for res in two_ranks[0]:
+        for k in keys:
+            np.testing.assert_array_equal(res[k], one_process[k])
+
+
+def test_two_ranks_blob_dog(two_ranks, one_process):
+    """blob_dog over blocks of both ranks: each scale's candidates
+    all-gathered and merged on their raster index."""
+    keys = [f"blob_{kind}_{k}" for kind in ("min", "max")
+            for k in ("crds", "sigmas", "scores")]
+    assert min(len(one_process[f"blob_{kind}_scores"])
+               for kind in ("min", "max")) >= 2
+    for res in two_ranks[0]:
+        for k in keys:
             np.testing.assert_array_equal(res[k], one_process[k])
 
 

@@ -66,13 +66,14 @@ grid is drawn from every rank's devices, each rank runs the stages on
 its own blocks, halos and reductions cross ranks, and the output is the
 one-process output bit for bit.  Every rank reads the whole input and
 gathers whole outputs (``to_host_np``); only rank 0 writes files
-(``is_writer``).  A volume the mesh does not divide runs whole on every
-rank, and rank 0 writes.  In a cluster ``-mesh`` runs ``-membrane``,
-``-curve``, ``-edge`` (with ``-tv``, ``-connect``, ``-normals-file``,
-``-save/-load-progress``), the stand-alone ``-connect``, the
-convolution filters, morphology, ``-template-gauss``, ``-doggxy`` and
-the intensity map; ``-find-*``, ``-watershed``, ``-blob``, the blob
-tools and the host handlers raise ``InputError``.
+(``is_writer``), the text lists and the PLY included.  A volume the mesh
+does not divide runs whole on every rank, and rank 0 writes.  Every
+handler runs in a cluster: the sharded ones (the flagship, ``-connect``,
+the filters, ``-watershed-device``, ``-blob``) over the global grid, and
+those the JAX CLI runs whole on every process (``-find-*``, the host
+``-watershed``, the blob tools, the distance and host handlers) whole on
+every rank, with the same seeds, so that every rank holds the same
+result.
 
 The port takes every flag the settings parser takes, which raises
 ``InputError`` for the flags it does not know and for the renamed ones
@@ -93,7 +94,6 @@ Usage: python -m visfd_tpu_torch.cli.filter_mrc -in in.rec -out out.rec
 from __future__ import annotations
 
 import dataclasses
-import os
 import sys
 from typing import Optional
 
@@ -120,7 +120,7 @@ from visfd_tpu_torch.ops import threshold as T
 from visfd_tpu_torch.ops.eigen_cuda import hessian_principal, sym3_score
 from visfd_tpu_torch.ops.tv_cuda import tv_votes
 from visfd_tpu_torch.parallel.distributed import (
-    init_distributed, process_count)
+    allgather_concat, init_distributed)
 from visfd_tpu_torch.parallel.gather import is_writer, to_host_np
 from visfd_tpu_torch.parallel.mesh import (
     Mesh, ShardedVolume, as_blocks, bmap, divides, make_mesh, shard,
@@ -143,23 +143,6 @@ _REFUSED = {
                               "checkpoint, a JAX format; use -load-progress"),
 }
 
-# what -mesh runs in a multi-process cluster; any other handler is refused
-# there, naming its flag
-_CLUSTER_HANDLERS = (
-    S.NONE, S.SURFACE_RIDGE, S.SURFACE_EDGE, S.CURVE, S.LABEL_CONNECTED,
-    S.GAUSS, S.GGAUSS, S.DOG, S.DOGG, S.LOG_DOG, S.LOCAL_FLUCTUATIONS,
-    S.MEDIAN, S.DILATION, S.EROSION, S.OPENING, S.CLOSING, S.TOP_HAT_WHITE,
-    S.TOP_HAT_BLACK, S.TEMPLATE_GAUSS, S.DOGGXY)
-_FLAGS = {
-    S.FIND_EXTREMA: "-find-minima/-find-maxima", S.WATERSHED: "-watershed",
-    S.BLOB: "-blob", S.BLOB_NONMAX_SUPPRESSION: "-discard-blobs",
-    S.BLOB_NONMAX_SUPERVISED_MULTI: "-supervised-multi",
-    S.DRAW_SPHERES: "-draw-spheres", S.DISTANCE_TO_POINTS: "-distance-points",
-    S.DISTANCE_TO_VOXELS: "-distance-to-voxels",
-    S.RANDOM_SPHERES: "-random-spheres",
-    S.BLOB_RADIAL_INTENSITY: "-blob-radial-intensity",
-}
-
 
 def _check_settings(s: Settings) -> None:
     """Raise InputError, naming the flag, for what the settings parser
@@ -167,20 +150,6 @@ def _check_settings(s: Settings) -> None:
     for attr, (flag, why) in _REFUSED.items():
         if getattr(s, attr):
             raise InputError(f"Error: visfd_tpu_torch refuses {flag}: {why}")
-    if (s.mesh_devices and s.filter_type not in _CLUSTER_HANDLERS
-            and _cluster_size() > 1):
-        flag = _FLAGS.get(s.filter_type, s.filter_type)
-        raise InputError(
-            f"Error: {flag} with -mesh in a multi-process cluster is not "
-            f"ported yet (see ROADMAP.md): run it in one process")
-
-
-def _cluster_size() -> int:
-    """The processes of the cluster this run joins or has joined (1
-    for none)."""
-    if process_count() > 1:
-        return process_count()
-    return int(os.environ.get("VISFD_NUM_PROCESSES", "1"))
 
 
 def _join_cluster(mesh_devices) -> None:
@@ -767,10 +736,12 @@ def handle_watershed(s: Settings, x_np, mask_np, device, rep: Report,
         labels = torch.as_tensor(labels, device=device)
     undef_value = s.undefined_voxel_brightness
     if s.undefined_voxels_are_max:
-        vols = labels.blocks if isinstance(labels, ShardedVolume) else \
-            [[labels]]
-        undef_value = max(int(b.max()) if b.numel() else 0
-                          for row in vols for b in row) + 1
+        lab = as_blocks(labels)
+        top = np.array([max(int(b.max()) if b.numel() else 0
+                            for _, _, b in lab.cells())])
+        if lab.mesh.spans_processes:
+            top = allgather_concat(top)
+        undef_value = int(top.max()) + 1
     mask = kw["mask"]
     if mask is not None and not isinstance(mask, ShardedVolume):
         mask = torch.as_tensor(mask, device=device)

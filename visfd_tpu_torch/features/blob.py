@@ -21,8 +21,11 @@ propagate, so they disqualify.  The test walks the z slabs of each
 block with 1-voxel halos (``parallel.blocks.iter_windows``), and only
 the candidates' coordinates (``torch.nonzero``, raster order) and
 scores leave the card, never a volume-sized mask; blocks of a -mesh run
-merge their lists into raster order.  One implementation serves one
-device (a 1 x 1 grid) and the mesh.  NMS runs on the host in the native
+merge their lists into raster order, and over a mesh that spans ranks
+each scale's lists are all-gathered before that merge (the flat index
+is unique, so every rank holds the one-process list before the
+threshold and the NMS).  One implementation serves one device (a 1 x 1
+grid) and the mesh.  NMS runs on the host in the native
 ``visfd_nms`` (no Python fallback).
 """
 
@@ -35,6 +38,7 @@ import numpy as np
 import torch
 
 from visfd_tpu_torch.ops import filters as F
+from visfd_tpu_torch.parallel import distributed as D
 from visfd_tpu_torch.parallel.blocks import iter_windows
 from visfd_tpu_torch.parallel.mesh import ShardedVolume
 from visfd_tpu_torch.utils.progress import span
@@ -124,10 +128,11 @@ def _scale_candidates(prev, mid, next_, mask, report=None):
     scores_max) as host arrays, the coordinates in raster order: the
     extremum test AND the sign test (minima score < 0, maxima > 0,
     ``feature.hpp:318-341``), compacted per slab on the device.  A
-    ``Report`` gets the spans "blob: extremum test" and "blob:
-    compaction + copy"."""
+    ``Report`` gets the spans "blob: extremum test", "blob: compaction
+    + copy" and "blob: candidate merge"."""
     found = ([], []), ([], [])
     multi = isinstance(mid, ShardedVolume) and mid.mesh.shape != (1, 1)
+    spans = multi and mid.mesh.spans_processes
     slabs = iter_windows([prev, mid, next_, mask], [0.0] * 4, (1, 1, 1),
                          SLAB_VOXELS)
     while True:
@@ -147,17 +152,20 @@ def _scale_candidates(prev, mid, next_, mask, report=None):
                     idx[:, 1] += y0
                     crds.append(idx.cpu().numpy())
     out = []
-    for crds, scores in found:
-        if not crds:
-            out.append((np.zeros((0, 3), np.int64), np.zeros(0, np.float32)))
-            continue
-        zyx, sc = np.concatenate(crds), np.concatenate(scores)
-        if multi:   # the blocks' lists into raster order
-            _, ny, nx = mid.shape
-            flat = (zyx[:, 0] * ny + zyx[:, 1]) * nx + zyx[:, 2]
-            order = np.argsort(flat, kind="stable")
-            zyx, sc = zyx[order], sc[order]
-        out.append((zyx, sc))
+    with span("blob: candidate merge", report):
+        for crds, scores in found:
+            zyx = (np.concatenate(crds) if crds
+                   else np.zeros((0, 3), np.int64))
+            sc = (np.concatenate(scores) if scores
+                  else np.zeros(0, np.float32))
+            if spans:   # every rank's candidates
+                zyx, sc = D.allgather_concat(zyx), D.allgather_concat(sc)
+            if multi:   # the blocks' lists into raster order
+                _, ny, nx = mid.shape
+                flat = (zyx[:, 0] * ny + zyx[:, 1]) * nx + zyx[:, 2]
+                order = np.argsort(flat, kind="stable")
+                zyx, sc = zyx[order], sc[order]
+            out.append((zyx, sc))
     return out[0], out[1]
 
 
@@ -247,13 +255,10 @@ def blob_dog(
 ) -> Tuple[BlobList, BlobList]:
     """Returns (minima, maxima) BlobLists with per-blob sigma stored in
     ``diameters`` (callers converting to diameters use blob_dog_d).
-    ``x`` (and ``mask``) may be ShardedVolumes: the same lists.  A mesh
-    that spans ranks is refused (the candidate merge is not ported)."""
+    ``x`` (and ``mask``) may be ShardedVolumes: the same lists, on
+    every rank when the mesh spans ranks (each calls it)."""
     if not isinstance(x, ShardedVolume):
         x = torch.as_tensor(x, dtype=torch.float32)
-    elif x.mesh.spans_processes:
-        raise NotImplementedError("blob_dog over a multi-process mesh is not "
-                                  "ported")
     m = mask
     if m is not None and not isinstance(m, ShardedVolume):
         m = torch.as_tensor(m, dtype=torch.float32, device=x.device)

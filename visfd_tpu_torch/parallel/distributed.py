@@ -77,7 +77,10 @@ def init_distributed(
     what is missing.  ``backend`` defaults to "nccl" where a card is
     visible and "gloo" elsewhere; under NCCL ``device`` is this rank's
     card (default ``cuda:<process id modulo the visible cards>``),
-    made current before the group starts.  ``kw`` goes to
+    made current before the group starts and passed as its
+    ``device_id``, so the group's NCCL communicator is set up as the
+    ranks join (the point-to-point transfers of ``exchange`` still set
+    up theirs at their first use).  ``kw`` goes to
     ``init_process_group`` (e.g. ``timeout=timedelta(seconds=60)``).
     Returns True once the rank belongs to a process group."""
     global _backend, _card
@@ -104,36 +107,41 @@ def init_distributed(
                          f"{_ENV[1]}={num_processes}")
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
+    card = None
     if backend == "nccl":
         if not torch.cuda.is_available():
             raise RuntimeError("backend 'nccl' needs a visible card; "
                                "backend='gloo' runs on the host")
-        _card = torch.device(device if device is not None else
-                             f"cuda:{process_id % torch.cuda.device_count()}")
-        torch.cuda.set_device(_card)
+        card = torch.device(device if device is not None else
+                            f"cuda:{process_id % torch.cuda.device_count()}")
+        torch.cuda.set_device(card)
     kw.setdefault("timeout", timedelta(minutes=10))
-    dist.init_process_group(backend,
-                            init_method=f"tcp://{coordinator_address}",
-                            world_size=num_processes, rank=process_id, **kw)
-    _backend = backend
-    if backend == "nccl" and num_processes > 1:
-        try:
-            _check_cards()
-        except RuntimeError:
-            shutdown_distributed()
-            raise
+    host, port = coordinator_address.rsplit(":", 1)
+    store = dist.TCPStore(host, int(port), num_processes, process_id == 0,
+                          timeout=kw["timeout"])
+    if card is not None:
+        if num_processes > 1:
+            _check_cards(store, card, process_id, num_processes)
+        kw.setdefault("device_id", card)
+    dist.init_process_group(backend, store=store, world_size=num_processes,
+                            rank=process_id, **kw)
+    _backend, _card = backend, card
     return True
 
 
-def _check_cards() -> None:
-    """Before NCCL's first collective: every rank's (host, card UUID),
-    gathered over a gloo group; two ranks on one card raise."""
-    gloo = dist.new_group(backend="gloo")
-    me = (socket.gethostname(),
-          str(torch.cuda.get_device_properties(_card).uuid))
-    seen = [None] * dist.get_world_size()
-    dist.all_gather_object(seen, me, group=gloo)
-    dist.destroy_process_group(gloo)
+def _check_cards(store, card, rank: int, n: int) -> None:
+    """Before NCCL starts: every rank's (host, card UUID), exchanged
+    through the rendezvous store; two ranks on one card raise on every
+    rank (NCCL itself would fail inside its set-up).  Rank 0 serves the
+    store, so it returns only once every rank has read."""
+    me = (f"{socket.gethostname()}\n"
+          f"{torch.cuda.get_device_properties(card).uuid}")
+    store.set(f"visfd_card_{rank}", me)
+    seen = [tuple(store.get(f"visfd_card_{r}").decode().split("\n"))
+            for r in range(n)]
+    store.set(f"visfd_card_read_{rank}", "1")
+    if rank == 0:
+        store.wait([f"visfd_card_read_{r}" for r in range(n)])
     for r, key in enumerate(seen):
         first = seen.index(key)
         if first != r:
@@ -232,9 +240,15 @@ def exchange(sends: Sequence[Tuple[torch.Tensor, int]],
     rank sends to a peer is the k-th that peer expects from it; all are
     posted at once (``batch_isend_irecv`` under NCCL, ``isend``/
     ``irecv`` under gloo) and waited for, so none can deadlock.  Adds
-    the call's wall seconds and bytes to ``traffic[kind]``."""
+    the call's wall seconds and bytes to ``traffic[kind]``: under NCCL,
+    whose ``wait()`` only orders the rank's stream after the transfer,
+    the card is synchronised before the clock starts and after the
+    waits, so the seconds are the transfer's and not the work queued
+    before it; gloo's ``wait()`` returns when the transfer is done."""
     if not sends and not recvs:
         return
+    if _backend == "nccl":
+        torch.cuda.synchronize(_card)
     t0 = time.perf_counter()
     if not all(t.is_contiguous() for t, _ in recvs):
         raise ValueError("exchange receives into contiguous buffers only")
@@ -245,6 +259,7 @@ def exchange(sends: Sequence[Tuple[torch.Tensor, int]],
                + [dist.P2POp(dist.irecv, t, p) for t, p in recvs])
         for work in dist.batch_isend_irecv(ops):
             work.wait()
+        torch.cuda.synchronize(_card)
     else:
         _through_host(sends, recvs)
     rec = traffic.setdefault(kind, {"calls": 0, "seconds": 0.0,

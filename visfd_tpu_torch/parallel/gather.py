@@ -5,8 +5,11 @@ block of a ``ShardedVolume`` into its place in one host array; in a
 multi-process cluster it is a collective, as the JAX package's
 ``process_allgather(tiled=True)``: every rank receives the blocks of the
 others and returns the whole array, so every rank calls it, also where
-only rank 0 uses the result.  File writes are gated on ``is_writer``
-(rank 0), so N processes running one command write one file.
+only rank 0 uses the result.  ``to_device`` is its counterpart on a
+device: the whole volume as one tensor there (the device watershed's
+pointer jumping reads every block's parents).  File writes are gated on
+``is_writer`` (rank 0), so N processes running one command write one
+file.
 """
 
 from __future__ import annotations
@@ -45,7 +48,22 @@ def to_host_np(vol, dtype=None) -> Optional[np.ndarray]:
     return out if dtype is None else out.astype(dtype, copy=False)
 
 
-def _row_blocks(vol: ShardedVolume, iz: int):
+def to_device(vol: ShardedVolume, device,
+              kind: str = "gather") -> torch.Tensor:
+    """The whole volume of ``vol`` as one tensor on ``device``: each
+    block copied into its place, another rank's received from it first
+    (a collective in a cluster, its exchanges counted under ``kind``)."""
+    bz, by = vol.block_shape
+    pre = (slice(None),) * vol.lead
+    out = torch.empty(vol.shape, dtype=vol.local_block.dtype, device=device)
+    for iz in range(vol.mesh.shape[0]):
+        for iy, b in enumerate(_row_blocks(vol, iz, kind)):
+            out[pre + (slice(iz * bz, (iz + 1) * bz),
+                       slice(iy * by, (iy + 1) * by))] = b.to(device)
+    return out
+
+
+def _row_blocks(vol: ShardedVolume, iz: int, kind: str = "gather"):
     """The blocks of row ``iz``: the local ones as they are, each other
     rank's received from it (every rank sends its blocks of the row to
     every other rank, in cell order, then rank order)."""
@@ -64,7 +82,7 @@ def _row_blocks(vol: ShardedVolume, iz: int):
             row[iy] = torch.empty(tmpl.shape, dtype=tmpl.dtype,
                                   device=D.comm_device())
             recvs.append((row[iy], owner))
-    D.exchange(sends, recvs, kind="gather")
+    D.exchange(sends, recvs, kind=kind)
     return row
 
 

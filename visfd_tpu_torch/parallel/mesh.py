@@ -17,9 +17,9 @@ In a multi-process cluster (``parallel.distributed``) the grid is drawn
 from every rank's devices, in rank order, and each cell belongs to the
 rank of its device (``Mesh.ranks``).  A ``ShardedVolume`` holds the
 blocks of its own rank and ``None`` for the others; ``cells``,
-``with_blocks``, ``bmap``, ``shard``, ``place``, ``gather_flat`` and
-``scatter_flat`` touch the local blocks only.  With one process every
-block is local.
+``with_blocks``, ``bmap``, ``shard``, ``place`` and ``scatter_flat``
+touch the local blocks only, and ``gather_flat`` all-gathers what each
+rank's blocks hold.  With one process every block is local.
 """
 
 from __future__ import annotations
@@ -268,8 +268,10 @@ def _block_of(vol: ShardedVolume, flat: np.ndarray):
 
 def gather_flat(vol: ShardedVolume, flat) -> np.ndarray:
     """The values of a (Z, Y, X) volume at global raster indices, as a
-    host array: each block gathers its own on its device (0 at the
-    indices of other ranks' blocks)."""
+    host array: each block gathers its own on its device.  Over a mesh
+    that spans ranks every rank calls it with the same indices, and the
+    values of each rank's blocks are all-gathered: every index has one
+    owner, so every rank returns the one-process array."""
     flat = np.asarray(flat, np.int64)
     bzi, byi, loc = _block_of(vol, flat)
     out = None
@@ -279,6 +281,11 @@ def gather_flat(vol: ShardedVolume, flat) -> np.ndarray:
         if out is None:
             out = np.zeros(len(flat), vals.cpu().numpy().dtype)
         out[sel] = vals.cpu().numpy()
+    if vol.mesh.spans_processes:
+        owner = np.asarray(vol.mesh.ranks)[bzi, byi]
+        for r, v in enumerate(D.allgather_arrays(
+                out[owner == vol.mesh.rank])):
+            out[owner == r] = v
     return out
 
 

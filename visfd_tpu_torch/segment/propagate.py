@@ -27,12 +27,22 @@ a plain tensor runs as the one block of a 1 x 1 grid.  So the mesh form
 on more blocks, and its labels equal the single-device ones.  Plateau
 labels jump along pointers inside a block (the JAX package's sharded
 scheme); the final root jump gathers the parents on the first block's
-device.  Each ``while_loop`` of the JAX package is a Python loop
-(``parallel.blocks.fixpoint``) whose "changed" flag is read every few
-iterations: past its fixpoint an iteration changes nothing, and
-``_minimax_device`` still stops at its cap of 8 (nz + ny + nx)
-iterations exactly.  Flat indices are int32, as in the JAX package; a
+device (``parallel.gather.to_device``).  Each ``while_loop`` of the JAX
+package is a Python loop (``parallel.blocks.fixpoint``) whose "changed"
+flag is read every few iterations: past its fixpoint an iteration
+changes nothing, and ``_minimax_device`` still stops at its cap of 8
+(nz + ny + nx) iterations exactly.  Flat indices are int32, as in the JAX package; a
 volume of 2^31 - 1 voxels or more is refused.
+
+Over a mesh that spans ranks (``parallel.distributed``) each loop
+receives its 1-voxel halos through ``parallel.halo.with_ghosts`` every
+round and reduces its flags over the ranks; the root jump all-gathers
+the parents (every rank jumps the whole volume on its own card, as XLA
+does over the JAX package's global mesh); the basin roots and the
+contested voxels are all-gathered and merged on their global raster
+indices, and ``gather_flat`` merges the roots' scores.  So every rank
+numbers the basins and runs the Meyer cascade on the one-process lists,
+and its blocks' labels equal the one-process ones.
 """
 
 from __future__ import annotations
@@ -43,14 +53,29 @@ from typing import Optional
 import numpy as np
 import torch
 
+from visfd_tpu_torch.parallel import distributed as D
 from visfd_tpu_torch.parallel.blocks import (
     INF, SENT, Geom, cells, fixpoint, nb)
-from visfd_tpu_torch.parallel.gather import to_host_np
-from visfd_tpu_torch.parallel.halo import halo1
+from visfd_tpu_torch.parallel.gather import to_device, to_host_np
+from visfd_tpu_torch.parallel.halo import halo1, with_ghosts
 from visfd_tpu_torch.parallel.mesh import (
     ShardedVolume, as_blocks, bmap, gather_flat, place, scatter_flat, unwrap)
 from visfd_tpu_torch.segment.extrema import neighbor_offsets
 from visfd_tpu_torch.utils.progress import Report
+
+
+def _merged(vol: ShardedVolume, a: np.ndarray) -> np.ndarray:
+    """``a``, this rank's part of a host list, joined with every other
+    rank's (in rank order) when ``vol`` spans ranks."""
+    return D.allgather_concat(a) if vol.mesh.spans_processes else a
+
+
+def _padded(vol: ShardedVolume, fill) -> dict:
+    """{(iz, iy): block padded by one voxel (``halo1``)} for this rank's
+    blocks, the rows of other ranks' blocks received first."""
+    g = with_ghosts(vol, 1, 1)
+    return {(iz, iy): halo1(g, iz, iy, fill) for iz, iy, _ in vol.cells()}
+
 
 def _inputs(x, mask):
     """(x, mask != 0) as blocks: a ShardedVolume as it is, a tensor (or
@@ -61,7 +86,7 @@ def _inputs(x, mask):
         return xs, xs.with_blocks(lambda iz, iy, b: torch.ones_like(
             b, dtype=torch.bool))
     m = mask if isinstance(mask, ShardedVolume) else as_blocks(
-        torch.as_tensor(mask, device=xs.blocks[0][0].device))
+        torch.as_tensor(mask, device=xs.local_block.device))
     return xs, bmap(lambda t: t != 0, m)
 
 
@@ -73,11 +98,10 @@ def _descend_device(x, mask, offsets, rep: Optional[Report] = None):
     xs, valid = _inputs(x, mask)
     g = Geom(xs)
     xv = bmap(lambda a, v: torch.where(v, a, INF), xs, valid)
-    xv_p = [[halo1(xv, iz, iy, INF) for iy in range(len(row))]
-            for iz, row in enumerate(xv.blocks)]
+    xv_p = _padded(xv, INF)
 
     def same(iz, iy, off):
-        p = xv_p[iz][iy]
+        p = xv_p[iz, iy]
         return g.inb(iz, iy, off, p.device) & (nb(p, off) == nb(
             p, (0, 0, 0)))
 
@@ -88,7 +112,7 @@ def _descend_device(x, mask, offsets, rep: Optional[Report] = None):
         best_v = torch.full_like(b, INF)
         best_i = torch.full_like(idx, SENT)
         for off in offsets:
-            nv = nb(xv_p[iz][iy], off)
+            nv = nb(xv_p[iz, iy], off)
             nidx = idx + g.delta(off)
             lower = g.inb(iz, iy, off, b.device) & (nv < b)
             better = lower & ((nv < best_v)
@@ -104,9 +128,10 @@ def _descend_device(x, mask, offsets, rep: Optional[Report] = None):
     def plab_step(state):
         lab, key = state
         flags = []
+        lab_g, key_g = with_ghosts(lab, 1, 1), with_ghosts(key, 1, 1)
 
-        def cell(iz, iy, _):
-            lp, kp = halo1(lab, iz, iy, SENT), halo1(key, iz, iy, SENT)
+        def cell(iz, iy):
+            lp, kp = halo1(lab_g, iz, iy, SENT), halo1(key_g, iz, iy, SENT)
             l0, k0 = lab.blocks[iz][iy], key.blocks[iz][iy]
             nl, nk = l0, k0
             for off in offsets:
@@ -118,10 +143,9 @@ def _descend_device(x, mask, offsets, rep: Optional[Report] = None):
             nk = torch.where(inblk, torch.minimum(nk, jk), nk)
             flags.append(((nl != l0) | (nk != k0)).any())
             return nl, nk
-        cells = [[cell(iz, iy, b) for iy, b in enumerate(row)]
-                 for iz, row in enumerate(lab.blocks)]
-        return ((lab.with_blocks(lambda iz, iy, _: cells[iz][iy][0]),
-                 key.with_blocks(lambda iz, iy, _: cells[iz][iy][1])), flags)
+        new = {(iz, iy): cell(iz, iy) for iz, iy, _ in lab.cells()}
+        return ((lab.with_blocks(lambda iz, iy, _: new[iz, iy][0]),
+                 key.with_blocks(lambda iz, iy, _: new[iz, iy][1])), flags)
 
     idx0 = xv.with_blocks(lambda iz, iy, b: g.idx(iz, iy, b.device))
     key0 = idx0.with_blocks(lambda iz, iy, i: torch.where(
@@ -142,9 +166,10 @@ def _descend_device(x, mask, offsets, rep: Optional[Report] = None):
 
     def resolve_step(par):
         flags = []
+        par_g = with_ghosts(par, 1, 1)
 
         def cell(iz, iy, p0):
-            pp = halo1(par, iz, iy, -1)
+            pp = halo1(par_g, iz, iy, -1)
             idx = idx0.blocks[iz][iy]
             resolved = p0 >= 0
             newpar = p0
@@ -165,13 +190,10 @@ def _descend_device(x, mask, offsets, rep: Optional[Report] = None):
     del xv_p, idx0
 
     # -- 4. pointer jumping to the roots, over the whole volume on the
-    #       first block's device --
-    dev = parent.blocks[0][0].device
-    flat = torch.empty(g.shape, dtype=torch.int32, device=dev)
-    for iz, iy, p in parent.cells():
-        flat[iz * g.bz:(iz + 1) * g.bz, iy * g.by:(iy + 1) * g.by] = p.to(dev)
+    #       first local block's device (every rank's parents gathered) --
+    flat = to_device(parent, parent.local_block.device,
+                     kind="pointer jump").reshape(-1)
     del parent
-    flat = flat.reshape(-1)
 
     def jump_step(p):
         new = p[p]
@@ -200,8 +222,7 @@ def _minimax_device(x, seed_lab, mask, offsets,
               else as_blocks(seed_lab.to(torch.int32)))
     g = Geom(xs)
     xv = bmap(lambda a, v: torch.where(v, a, INF), xs, valid)
-    xv_p = [[halo1(xv, iz, iy, INF) for iy in range(len(row))]
-            for iz, row in enumerate(xv.blocks)]
+    xv_p = _padded(xv, INF)
     is_seed = bmap(lambda s, v: (s > 0) & v, seeds, valid)
     state = (bmap(lambda s, a: torch.where(s, a, INF), is_seed, xv),
              bmap(lambda s, lab: torch.where(s, lab.to(torch.int32), SENT),
@@ -212,16 +233,17 @@ def _minimax_device(x, seed_lab, mask, offsets,
     def step(st):
         r, lab, dr, dx = st
         flags = []
+        r_g, lab_g = with_ghosts(r, 1, 1), with_ghosts(lab, 1, 1)
 
-        def cell(iz, iy, _):
-            rp, lp = halo1(r, iz, iy, INF), halo1(lab, iz, iy, SENT)
+        def cell(iz, iy):
+            rp, lp = halo1(r_g, iz, iy, INF), halo1(lab_g, iz, iy, SENT)
             xb, v, s = (xv.blocks[iz][iy], valid.blocks[iz][iy],
                         is_seed.blocks[iz][iy])
             r0, l0, dr0, dx0 = (t.blocks[iz][iy] for t in st)
             free = v & ~s
             nr, nl, ndr, ndx = r0, l0, dr0, dx0
             for off in offsets:
-                r_u, x_u, l_u = (nb(rp, off), nb(xv_p[iz][iy], off),
+                r_u, x_u, l_u = (nb(rp, off), nb(xv_p[iz, iy], off),
                                  nb(lp, off))
                 ok = free & (l_u != SENT)
                 better = ok & ((r_u < ndr) | ((r_u == ndr) & (x_u < ndx)))
@@ -232,9 +254,8 @@ def _minimax_device(x, seed_lab, mask, offsets,
                 nr = torch.where(better, torch.maximum(r_u, xb), nr)
             flags.append(((ndr != dr0) | (ndx != dx0) | (nl != l0)).any())
             return nr, nl, ndr, ndx
-        cells = [[cell(iz, iy, b) for iy, b in enumerate(row)]
-                 for iz, row in enumerate(r.blocks)]
-        return tuple(r.with_blocks(lambda iz, iy, _, j=j: cells[iz][iy][j])
+        new = {(iz, iy): cell(iz, iy) for iz, iy, _ in r.cells()}
+        return tuple(r.with_blocks(lambda iz, iy, _, j=j: new[iz, iy][j])
                      for j in range(4)), flags
 
     # the cap: relabels along pathological equal-r donor cycles (exact
@@ -263,9 +284,10 @@ def meyer_boundaries(labels, r, x_signed, offs, valid=None,
     g = Geom(lab)
     _, ny, nx = g.shape
     assigned = bmap(lambda t, m: (t > 0) & m, lab, _inputs(lab, valid)[1])
+    lab_g, asg_g = with_ghosts(lab, 1, 1), with_ghosts(assigned, 1, 1)
     flat, rf, xf, dep = [], [], [], []
     for iz, iy, lb, ab, rb, xb in cells(lab, assigned, rs, xs):
-        lp, ap = halo1(lab, iz, iy, -2), halo1(assigned, iz, iy, False)
+        lp, ap = halo1(lab_g, iz, iy, -2), halo1(asg_g, iz, iy, False)
         deps = [ab & nb(ap, off) & (nb(lp, off) != lb) for off in offs]
         contested = torch.stack(deps).any(0)
         z, y, xx = torch.nonzero(contested, as_tuple=True)
@@ -273,15 +295,17 @@ def meyer_boundaries(labels, r, x_signed, offs, valid=None,
                     .cpu().numpy())
         rf.append(rb[z, y, xx].cpu().numpy())
         xf.append(xb[z, y, xx].cpu().numpy())
-        dep.append(torch.stack([d[z, y, xx] for d in deps]).cpu().numpy())
+        dep.append(torch.stack([d[z, y, xx] for d in deps], -1).cpu().numpy())
+    del lab_g, asg_g
     out = bmap(torch.clone, lab)
-    cf = np.concatenate(flat)
+    # the blocks' (and the ranks') lists, merged on the global index
+    cf, rf, xf, dep = (_merged(lab, np.concatenate(a))
+                       for a in (flat, rf, xf, dep))
     m = len(cf)
     if m == 0:
         return unwrap(out, labels)
-    srt = np.argsort(cf, kind="stable")     # the blocks' lists, merged
-    cf, rf, xf = cf[srt], np.concatenate(rf)[srt], np.concatenate(xf)[srt]
-    dep = np.concatenate(dep, axis=1)[:, srt]
+    srt = np.argsort(cf, kind="stable")
+    cf, rf, xf, dep = cf[srt], rf[srt], xf[srt], dep[srt].T
     # pop order: (r, x, flat index); rank of each contested voxel
     pos = np.lexsort((cf, xf, rf))
     order = cf[pos]
@@ -349,9 +373,9 @@ def postprocess_basins(root, valid, x_signed, start_from_minima: bool,
     order on ties.  The labels come from a binary search of each voxel's
     root in the sorted roots, on the device: no volume-sized table."""
     rs, vs, xs = as_blocks(root), as_blocks(valid), as_blocks(x_signed)
-    roots = np.unique(np.concatenate(
+    roots = np.unique(_merged(rs, np.concatenate(
         [torch.unique(r[v]).cpu().numpy().astype(np.int64)
-         for _, _, r, v in cells(rs, vs)] + [np.zeros(0, np.int64)]))
+         for _, _, r, v in cells(rs, vs)] + [np.zeros(0, np.int64)])))
     scores = (gather_flat(xs, roots) if len(roots)
               else np.zeros(0, np.float32))
     perm = np.lexsort((roots, scores))
@@ -437,11 +461,9 @@ def propagate_watershed(
     blocks).  ``markers`` (host array): a label image whose first-seen
     voxel per positive label seeds a basin.  ``show_boundaries``: the
     Meyer flood's basin-collision boundaries (``meyer_boundaries``).
-    ``labels`` of the result take the form of ``source`` (int64).  A
-    mesh that spans ranks is refused (its host merges are not ported)."""
-    if isinstance(source, ShardedVolume) and source.mesh.spans_processes:
-        raise NotImplementedError("propagate_watershed over a multi-process "
-                                  "mesh is not ported")
+    ``labels`` of the result take the form of ``source`` (int64).  Over
+    a mesh that spans ranks every rank calls it; each gets the
+    one-process result, labels for its own blocks."""
     x = source if isinstance(source, ShardedVolume) else \
         torch.as_tensor(source, dtype=torch.float32)
     if not start_from_minima:
