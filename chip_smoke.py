@@ -8,7 +8,10 @@ Phase 11 (``--nccl``, ``phase_cards``): ``-mesh`` over NCCL with one
 card a rank (two ranks, then one on every card), 5c's command at 537M
 and 6c's ``-connect``, each against the one-process ``-mesh`` over the
 same cards bit for bit, each rank's gather no faster than 900 GB/s on
-its exchanges' clock; its last line ``{"ok": ..., "cards": n}``.
+its exchanges' clock; then 13c (``phase_checkpoint_cards``): every card's
+rank saves 5c's run with ``-save-progress-sharded``, two ranks and one
+process ``-mesh 4`` load it, and its arrays equal those one process
+computes without it; its last line ``{"ok": ..., "cards": n}``.
 
 Phases:
 
@@ -26,7 +29,7 @@ Phases:
    occupancy at three granularities), on a 5%-occupied "planes" field
    and on a 74%-occupied one; the vote score without and with its
    principal vector (the ``-connect`` path), with
-   ``torch.linalg.eigvalsh`` / ``eigh`` timed on an eighth of the
+   ``torch.linalg.eigvalsh`` / ``eigh`` timed on a 32nd of the
    planes; then (2b) every kernel option on small
    volumes whose sides differ and are not multiples of a tile, the
    per-shard Hessian entry on a strided view of a block with its halo
@@ -50,7 +53,7 @@ Phases:
    3 voxels thick under halos deeper than a block; (5b) every sharded
    stage (blur, Hessian, the ``-tv-best`` threshold, sparse and dense
    voting, vote score with and without its vector) against its
-   single-device counterpart at (Z, Y, X) = (512, 1024, 1024), counting
+   single-device counterpart at (Z, Y, X) = (256, 1024, 1024), counting
    the voxels whose bits differ (0 expected), with the Hessian stage's
    sharded/single ratio and the vote score's share of its bound, and the
    halo copies timed on their own; the vote score with its vector per
@@ -58,11 +61,11 @@ Phases:
    with ``torch.linalg.eigh``;
    (5c) ``filter_mrc -membrane … -tv …
    -mesh 4`` and the same command without ``-mesh`` on a seeded 1024 x
-   1024 x 512 phantom: identical outputs, each per-shard kernel launched
+   1024 x 256 phantom: identical outputs, each per-shard kernel launched
    once per block, both walls and the peak device memory;
 6. ``-connect``: (6c) ``filter_mrc -membrane minima 3 -tv 1.5
    -tv-angle-exponent 4 -connect T -connect-angle 30`` on a seeded 512 x
-   512 x 256 phantom (its 1024 x 1024 x 512 run is in 7d), T the 96th
+   512 x 256 phantom (its 1024 x 1024 x 256 run is in 7d), T the 96th
    percentile of that phantom's stick score (printed): every kernel
    launched, the
    vote score with its vector, the stage spans (gates, seeds, candidate
@@ -85,18 +88,18 @@ Phases:
    ``-select-cluster 1 -normals-file`` on a 96 x 96 x 48 phantom, with
    the walker's seconds per PLY vertex;
 7. the segmentation handlers and the intensity map: (7a) ``-find-minima``
-   and ``-find-maxima`` at 1024 x 1024 x 512 (a membrane phantom blurred
+   and ``-find-maxima`` at 1024 x 1024 x 256 (a membrane phantom blurred
    at sigma 3): walls, extrema counts, card against CPU on a crop; (7b)
    ``-watershed minima``, the native flood, at 64 x 512 x 512, its
    microseconds per voxel,
    the flood against its Python twin on a crop, ``ref_gauss.mrc`` with
    and without ``-markers`` card against CPU; (7c)
-   ``-watershed-device`` at 1024 x 1024 x 512: wall, each loop's rounds,
+   ``-watershed-device`` at 1024 x 1024 x 256: wall, each loop's rounds,
    card memory and host RSS, crops against the CPU and against the host
    flood on distinct values; (7d) ``-mesh 4`` on one card against one
    device, bit for bit: ``-watershed-device`` (with and without
    boundaries), ``-edge`` and ``-select-cluster 1 -normals-file``, then
-   ``-connect`` at 1024 x 1024 x 512 on one device and with ``-mesh 4``
+   ``-connect`` at 1024 x 1024 x 256 on one device and with ``-mesh 4``
    (spans, card memory, host RSS, launches); (7e) ``-thresh2``,
    ``-thresh4``, ``-clip``, ``-cl``, ``-thresh-gauss``, ``-rescale``,
    ``-fill``, ``-mask-rect``/``-mask-sphere`` and ``-image-size``, card
@@ -107,13 +110,13 @@ Phases:
    per axis (TF32 off), and against the fused kernel where both run;
    the per-axis mode at 8e's ``-gauss 21`` (halfwidth 55) on
    (256, 512, 512) against its twin; the fused kernel at the blob
-   ladder's halfwidths 6-11 at 1024 x 1024 x 512; the dense-correlation
+   ladder's halfwidths 6-11 at 1024 x 1024 x 256; the dense-correlation
    kernel at -ggauss's and -dogg's kernels (7^3, 15^3) on (256, 512, 512)
    beside ``conv3d``; each per-axis and dense time as a share of its
    bound, beside the time of the design before (``BEFORE_MS``); (8b)
    ``filter_mrc -w 19.6 -mask M -blob minima B 160 280 1.01`` (the
    reference's ladder, 58 scales)
-   on a seeded 1024 x 1024 x 512 phantom of 3000 dark spheres: the
+   on a seeded 1024 x 1024 x 256 phantom of 1500 dark spheres: the
    ``blur3`` launches against the ladder's 4 a scale, the spans (read,
    LoG ladder, extremum test, compaction, NMS, drawing, write), wall,
    peak card memory, host peak RSS, and the share of the phantom's
@@ -168,7 +171,7 @@ Phases:
 12. every other handler in a cluster: two gloo ranks on the one card,
     blocks on ``["cuda:0"] * 2`` each (``phase_cluster_handlers``, all
     commands in one spawn, the host's cores shared between the ranks):
-    (12a) 8b's ``-blob`` at 1024 x 1024 x 512 with ``-mesh -1``, the
+    (12a) 8b's ``-blob`` at 1024 x 1024 x 256 with ``-mesh -1``, the
     list and the image bit for bit 8b's, each rank's ``blur3`` launches
     twice 8b's (one a block), the wall, the spans (LoG ladder, extremum
     test, candidate merge), the exchanges, peak card memory and host
@@ -183,6 +186,20 @@ Phases:
     ``-blob-radial-intensity``, each against one process ``-mesh 4``;
     every file rank 0 writes (text lists included) compared, rank 1
     writing none.
+13. the sharded phase checkpoint (``phase_checkpoint``), 5c's command on
+    the first 128 planes of 5c's input (1024 x 1024 x 128, a 5 GiB
+    checkpoint, so that the whole script writes under 45 GiB to its
+    disk): (13a) one process, ``-mesh 4 -save-progress-sharded``
+    with ``-save-progress`` (the ``.rec`` yardstick) in the same run: the
+    save's seconds, bytes and GB/s, peak card memory and host RSS;
+    ``load_sharded`` whole, bit for bit the arrays the run saved; ``-load-progress-sharded`` without a mesh and
+    with ``-mesh 4``, equal outputs; (13b) two gloo ranks on the card
+    save and load (each rank writes its own blocks, half the bytes, and
+    exchanges nothing during the save and the load), equal to 13a's, and
+    one process loads their checkpoint without a mesh, equal to 13a's.
+    ``--nccl`` adds 13c: n NCCL ranks save, two ranks and one process
+    ``-mesh 4`` load, every output equal, and the checkpoint's arrays
+    equal those one process ``-mesh n`` computes without it.
 
 A failed check is reported where it happens and the later phases still
 run; the script then exits non-zero without a result line.  On success
@@ -197,8 +214,10 @@ one device, from 6c, and one per block, from 7d's ``-mesh`` run; the
 blur's per-axis mode counts 8e's ``-gauss 21`` run, the dense kernel
 8e's ``-ggauss`` run, its (1, Ky, Kx) mode 9a's ``-doggxy`` run and its
 31^3 mode 9a's ``-template-gauss`` run; ``cluster_launches``: each
-rank's launches in 10a and 12a) and
-the last line ``{"ok": true, "device": {...}}``.  TF32
+rank's launches in 10a and 12a), before it the card's name and power
+limit and phase 13's numbers (``{"checkpoint": ...}``), and the last
+line ``{"ok": true, "device": {...}}``.  Each phase prints its
+seconds.  TF32
 is turned off for cuDNN and matmuls (the twins use neither; the
 library yardsticks are timed in float32).
 """
@@ -218,7 +237,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 1234
 MAIN_SHAPE = (256, 512, 512)  # (Z, Y, X) of the main-path run
-MESH_SHAPE = (512, 1024, 1024)  # (Z, Y, X) of the -mesh run, phase 5
+MESH_SHAPE = (256, 1024, 1024)  # (Z, Y, X) of the -mesh run, phase 5
+CARDS_SHAPE = (512, 1024, 1024)  # (Z, Y, X) of 5c's command in phase 11
 MESH_DEVICES = 4                # a (2, 2) mesh
 
 # what each kernel replaces: (name, CUDA source, TPU kernel)
@@ -770,17 +790,15 @@ def phase_kernels(chk, card, shape=MAIN_SHAPE, dev="cuda"):
     # the twin's order of operations, so it follows the host twin.
     blur = blur_cuda.blur3(x, [torch.as_tensor(K.gauss_kernel_1d(1.73, 4),
                                                device=dev)] * 3)
-    blur_h = blur.cpu()
-    for decreasing in (True, False):
-        raw = EC.hessian_principal_plain(blur_h, 1.73, decreasing, "vals",
-                                         True)
-        for formula in ("planar", "linear", "stick", "vals"):
-            s_k, v_k = EC.hessian_principal(blur, 1.73, decreasing,
-                                            formula, True)
-            record("hessian_principal", _eigen_check(
-                chk, f"hessian_principal {formula} decreasing={decreasing}",
-                s_k, v_k, raw, formula))
-        del raw
+    # Here the main path's order only (each host twin takes tens of
+    # seconds at this shape); 2b holds both orders.
+    raw = EC.hessian_principal_plain(blur.cpu(), 1.73, True, "vals", True)
+    for formula in ("planar", "linear", "stick", "vals"):
+        s_k, v_k = EC.hessian_principal(blur, 1.73, True, formula, True)
+        record("hessian_principal", _eigen_check(
+            chk, f"hessian_principal {formula} decreasing=True", s_k, v_k,
+            raw, formula))
+    del raw
     ms = cuda_ms(lambda: EC.hessian_principal(blur, 1.73, True, "planar",
                                               True), 20)
     pms = cuda_ms(lambda: EC.hessian_principal_plain(blur, 1.73, True,
@@ -816,14 +834,17 @@ def phase_kernels(chk, card, shape=MAIN_SHAPE, dev="cuda"):
              ("curves", sal_dense, nv, dict(detect_curves=True)),
              ("planes 5%", sal_planes, nv, dict()),
              ("-tv-best 0.05", sal_real, nv_real, dict())]
+    # the twin (seconds a call) on the dense field and the main path's;
+    # 2b holds the mask, the denominator and curves against it
     twin_ms = {}
     for label, sal, nvc, extra in cases:
         got, got_den = tv_votes(sal, nvc, sigma, **kw, **extra)
-        raw, twin_ms[label] = timed_ms(lambda: _tv_twin(
-            sal, nvc, sigma, ratio, **extra))
-        record("tv_votes", _tv_check(chk, f"tv_votes hw=3 e=4 {label}",
-                                     got, got_den, raw))
-        del raw
+        if label in ("dense", "-tv-best 0.05"):
+            raw, twin_ms[label] = timed_ms(lambda: _tv_twin(
+                sal, nvc, sigma, ratio, **extra))
+            record("tv_votes", _tv_check(chk, f"tv_votes hw=3 e=4 {label}",
+                                         got, got_den, raw))
+            del raw
         sp, sp_den = tv_votes(sal, nvc, sigma, sparse=True, **kw, **extra)
         _sparse_equals_dense(chk, f"tv_votes {label}", sp, sp_den, got,
                              got_den)
@@ -874,10 +895,10 @@ def phase_kernels(chk, card, shape=MAIN_SHAPE, dev="cuda"):
           f"(on the card), bound {b[0]:.3f} ms ({b[1]}), {b[0] / ms:.0%} of "
           f"it [{card}]", flush=True)
 
-    # MAGMA's eigvalsh / eigh on the first eighth of the planes (on all of
+    # MAGMA's eigvalsh / eigh on the first 32nd of the planes (on all of
     # them eigvalsh takes 45-72 s and eigh about two and a half minutes);
     # the kernels line gives that shape beside library_ms
-    slab = vote[:, :vote.shape[1] // 8].contiguous()
+    slab = vote[:, :vote.shape[1] // 32].contiguous()
     lms = library_ms(torch.linalg.eigvalsh, slab)
     lms_v = library_ms(torch.linalg.eigh, slab)
     lshape = list(slab.shape[1:])
@@ -2248,7 +2269,7 @@ def phase_watershed_host(chk, card, tmp, dev="cuda"):
                           TE.neighbor_offsets(3), 1.0, np.inf, True)
     t_py = time.perf_counter() - t0
     chk.check(np.array_equal(nat, py),
-              f"native flood == Python twin on a {PY_CROP}^3 crop: "
+              f"native flood == Python twin on a {c.shape} crop: "
               f"{len(locs)} basins ({t_nat:.3f} s native with the seeds on "
               f"the card, {t_py:.3f} s Python)")
 
@@ -2497,6 +2518,8 @@ def phase_intensity(chk, card, tmp, dev="cuda"):
 BLOB_SHAPE = MESH_SHAPE         # (Z, Y, X) of 8b, 8d and 8f
 BLOB_W = 19.6                   # -w: the reference's blob pipeline
 BLOB_LADDER = "160 280 1.01"    # ... and its ladder (diameters, physical)
+BLOB_COUNT = 1500               # 8b's spheres: one per 179k voxels, the
+#                                 density 8b's found-share check was set at
 BLOB_CROP = (64, 128, 128)      # 8c's card-against-CPU crop
 FILTER_SHAPE = MAIN_SHAPE       # 8e
 FILTER_CROP = (32, 64, 64)      # 8e's card-against-CPU crop
@@ -2804,7 +2827,7 @@ def phase_blob(chk, card, tmp, dev="cuda"):
           f"{BLOB_LADDER}, {label}: {len(diams)} scales, LoG halfwidths "
           f"{hws[0]}-{hws[-1]} [{card}]", flush=True)
     vol, mask, centres, _ = blob_phantom(BLOB_SHAPE, seed=SEED + 81,
-                                         n_blobs=3000, device=dev)
+                                         n_blobs=BLOB_COUNT, device=dev)
     fin, fmask = os.path.join(tmp, "blob_in.mrc"), \
         os.path.join(tmp, "blob_mask.mrc")
     vol_np, mask_np = vol.cpu().numpy(), mask.cpu().numpy()
@@ -3014,7 +3037,8 @@ def phase_blob_mesh(chk, card, tmp, blob, dev="cuda"):
 
 # --- phase 9: the experimental handlers, the 2-D filters, the tools ----------
 
-EXP_SHAPE = BLOB_SHAPE          # 9a: 8b's input and mask, (512, 1024, 1024)
+EXP_SHAPE = BLOB_SHAPE          # 9a: 8b's input and mask
+DENSE_YX_SHAPE = (512, 1024, 1024)  # 9a's (1, 21, 21) timing: BEFORE_MS's
 EXP_ARGS = ("-template-gauss 3 6", "-doggxy 2 4 2")
 EXP_CROP = (24, 48, 64)         # 9a's card-against-CPU crop, across the
 #                                 mask's edge
@@ -3054,19 +3078,19 @@ def _exp_kernels():
 
 def phase_exp_kernels(chk, card, dev="cuda"):
     """9a (kernels): the dense kernel's (1, 21, 21) mode (-doggxy's 2-D
-    pass) at EXP_SHAPE and its 31^3 mode (-template-gauss's amplitude) on
+    pass) at DENSE_YX_SHAPE and its 31^3 mode (-template-gauss's amplitude) on
     TEMPLATE_SLAB, each against its twin and cuDNN conv3d (TF32 off):
     checks, CUDA-event times, bounds, shares of the bound beside
     BEFORE_MS.  Returns per-kernel stats."""
     import torch
     from visfd_tpu_torch.ops import dense_cuda
     print(f"== phase 9a (kernels): the dense kernel's (1, 21, 21) mode on "
-          f"{EXP_SHAPE}, its 31^3 mode on {TEMPLATE_SLAB} [{card}]",
+          f"{DENSE_YX_SHAPE}, its 31^3 mode on {TEMPLATE_SLAB} [{card}]",
           flush=True)
     k31, _, k2 = _exp_kernels()
     gen = torch.Generator(device=dev).manual_seed(SEED + 90)
     stats = {}
-    for name, shape, k in (("conv3d_dense_yx", EXP_SHAPE, k2),
+    for name, shape, k in (("conv3d_dense_yx", DENSE_YX_SHAPE, k2),
                            ("conv3d_dense_31", TEMPLATE_SLAB, k31)):
         x = torch.randn(shape, generator=gen, device=dev)
         nvox = x.numel()
@@ -3481,8 +3505,9 @@ def phase_tools(chk, card, tmp, blob, exp_outs, dev="cuda"):
     chk.check(rc == 0 and len(out.splitlines()) == 401,
               f"draw_filter_1d: exit {rc}")
 
-    # the device tools, card against CPU on a crop
-    zc = nz // 10 - TOOL_CROP[0] // 2
+    # the device tools, card against CPU on a crop across the mask's
+    # lower edge (plane nz // 10)
+    zc = max(0, nz // 10 - TOOL_CROP[0] // 2)
     sl = (slice(zc, zc + TOOL_CROP[0]), slice(0, TOOL_CROP[1]),
           slice(0, TOOL_CROP[2]))
     cfiles = []
@@ -3529,11 +3554,13 @@ def cluster_rank(spec_path: str) -> int:
     VISFD_* variables set): joins with the spec's backend, runs each of
     its CLI commands with the counts and peaks reset just before and
     read just after, the ranks meeting at a barrier after each, and
-    prints one ``RESULT`` JSON line."""
+    prints one ``RESULT`` JSON line (with the files the rank wrote and
+    the bytes exchanged during each ``save_sharded``/``load_sharded``
+    call)."""
     from datetime import timedelta
     import torch
-    import torch.distributed as dist
     from visfd_tpu_torch.cli import filter_mrc as TFM
+    from visfd_tpu_torch.io import checkpoint as CK
     from visfd_tpu_torch.ops import blur_cuda, dense_cuda, eigen_cuda as EC
     from visfd_tpu_torch.ops import tv_cuda
     from visfd_tpu_torch.parallel import distributed as D
@@ -3568,9 +3595,27 @@ def cluster_rank(spec_path: str) -> int:
             writes.append(str(path))
         return open(path, mode, *a, **k)
     TFM.open = spy_open
+    CK.open = spy_open      # the checkpoint's block files and metadata
+    moved = []
+
+    def count_traffic(fn):
+        # the bytes every kind of exchange moved during a checkpoint call
+        def total():
+            return sum(v["bytes_sent"] + v["bytes_received"]
+                       for v in D.traffic.values())
+
+        def wrapped(*a, **k):
+            before = total()
+            out = fn(*a, **k)
+            moved.append(total() - before)
+            return out
+        return wrapped
+    TFM.save_sharded = count_traffic(TFM.save_sharded)
+    TFM.load_sharded = count_traffic(TFM.load_sharded)
     results = []
     for run in spec["runs"]:
         writes.clear()
+        moved.clear()
         D.reset_traffic()
         for w in wrappers.values():
             w.launches = 0
@@ -3590,8 +3635,9 @@ def cluster_rank(spec_path: str) -> int:
             "launches": {k: w.launches for k, w in wrappers.items()},
             "card_gib": (torch.cuda.max_memory_allocated() / 2**30
                          if on_card else 0.0),
-            "rss_gib": rss.gib, "writes": list(writes)})
-        dist.barrier()
+            "rss_gib": rss.gib, "writes": list(writes),
+            "counts": rep.counts, "checkpoint_moved": list(moved)})
+        D.barrier()
     print("RESULT " + json.dumps({"rank": D.process_index(),
                                   "backend": D.backend(),
                                   "runs": results}), flush=True)
@@ -3845,8 +3891,7 @@ def phase_cluster(chk, card, tmp, mesh_files, thr, dev="cuda"):
         f"10c: two NCCL ranks on one card raise and name the cause (exit "
         f"codes {[d[0] for d in done]}): "
         + (errs[0].strip().splitlines() or ["(no output)"])[-1])
-    os.unlink(fin5)
-    os.unlink(fout5)
+    os.unlink(fout5)    # 5c's input stays for phase 13
 
     # 10d: the dry run on the card
     print(f"== phase 10d: entry.dryrun_multichip(4, devices={blocks * 2})",
@@ -3899,7 +3944,8 @@ def phase_cluster(chk, card, tmp, mesh_files, thr, dev="cuda"):
 C12_WS_SHAPE = MAIN_SHAPE       # 12b: -watershed-device against -mesh 4
 C12_SMALL = (64, 128, 128)      # 12c's inputs
 C12_TIMEOUT = 360               # s: a child rank of phase 12
-BLOB_CARD_GIB = 23.0            # 8b's peak card memory (PERF.md section 5)
+BLOB_CARD_GIB = 23.0            # 8b's peak card memory at twice its depth
+#                                 (PERF.md section 5): an upper bound
 
 
 def _blobs_inside(stem, shape, path):
@@ -4063,6 +4109,283 @@ def phase_cluster_handlers(chk, card, tmp, blob, dev="cuda"):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the sharded phase checkpoint
+
+C13_SHAPE = (128, 1024, 1024)   # (Z, Y, X): 13's cut of 5c's input
+C13_TIMEOUT = 300               # s: a child rank of 13b
+CK_NAMES = ("vote", "saliency", "direction")
+CK_CHANNELS = 6 + 1 + 3         # the checkpoint's channels a voxel
+
+
+class _SaveCapture:
+    """Records what filter_mrc passes to ``save_sharded``: a copy of each
+    array's blocks on their devices (``arrays``: name -> [(iz, iy,
+    block)]); the save itself runs only when ``write`` is set."""
+
+    def __init__(self, write=True):
+        self.write = write
+
+    def __enter__(self):
+        from visfd_tpu_torch.cli import filter_mrc as TFM
+        from visfd_tpu_torch.parallel.mesh import as_blocks
+        self.tfm, self.fn, self.arrays = TFM, TFM.save_sharded, {}
+
+        def save(path, tree):
+            for k, v in tree.items():
+                self.arrays[k] = [(iz, iy, b.clone())
+                                  for iz, iy, b in as_blocks(v).cells()]
+            return self.fn(path, tree) if self.write else 0
+        TFM.save_sharded = save
+        return self
+
+    def __exit__(self, *exc):
+        self.tfm.save_sharded = self.fn
+
+
+def _words_differ(blocks, got) -> int:
+    """The 32-bit words in which ``got`` (a tensor, or a ShardedVolume of
+    the same grid) differs from captured ``blocks``."""
+    import torch
+    from visfd_tpu_torch.parallel.mesh import ShardedVolume
+    n = 0
+    for iz, iy, b in blocks:
+        bz, by = b.shape[-3:-1]
+        g = (got.blocks[iz][iy] if isinstance(got, ShardedVolume) else
+             got[..., iz * bz:(iz + 1) * bz, iy * by:(iy + 1) * by, :])
+        n += int((g.view(torch.int32) != b.view(torch.int32)).sum()) \
+            if g.shape == b.shape else b.numel()
+    return n
+
+
+def _rank_ck_files(ck, rank, ny):
+    """The block files rank ``rank`` writes of a checkpoint saved over
+    a grid whose row ``rank`` it holds (``ny`` blocks a row)."""
+    return [f"{ck}.partial/{name}.{rank}.{iy}.npy" for name in CK_NAMES
+            for iy in range(ny)]
+
+
+def _gbps(nbytes, secs):
+    return nbytes / secs / 1e9 if secs > 0 else float("nan")
+
+
+def phase_checkpoint(chk, card, tmp, fin5, dev="cuda"):
+    """13: ``-save-progress-sharded`` / ``-load-progress-sharded`` with
+    5c's command on the first C13_SHAPE[0] planes of 5c's input.  (13a)
+    one process: the save under ``-mesh 4`` (with ``-save-progress``, the
+    ``.rec`` yardstick, in the same run), the arrays ``load_sharded``
+    restores whole against those the run saved,
+    and the CLI's load without a mesh and with ``-mesh 4``; (13b) two
+    gloo ranks on the card save and load, and one process loads their
+    checkpoint.  Every output bit for bit.  Returns the phase's
+    numbers."""
+    import shutil
+    import torch
+    from visfd_tpu_torch.io import checkpoint as CK
+    from visfd_tpu_torch.io import mrc
+
+    mesh = _mesh()
+    mesh_devs = [d for row in mesh.devices for d in row]
+    args = "-w 1 -membrane minima 3 -tv 1.5 -tv-angle-exponent 4".split()
+    shape = C13_SHAPE
+    fin = os.path.join(tmp, "c13_in.mrc")
+    src = _mrc_view(fin5)
+    chk.check(src.shape[1:] == shape[1:] and src.shape[0] >= shape[0],
+              f"13: 5c's input {src.shape} holds {shape}")
+    mrc.write_mrc(fin, np.array(src[:shape[0]]))
+    del src
+    ck_bytes = CK_CHANNELS * int(np.prod(shape)) * 4
+    vote_bytes = 6 * int(np.prod(shape)) * 4
+    du = shutil.disk_usage(tmp)
+    torch.cuda.empty_cache()
+    print(f"== phase 13a: -save-progress-sharded / -load-progress-sharded, "
+          f"filter_mrc {' '.join(args)} at "
+          f"{'x'.join(map(str, shape[::-1]))} (the first {shape[0]} planes "
+          f"of 5c's input), one process, blocks on "
+          f"{[str(d) for d in mesh_devs]}; disk free "
+          f"{du.free / 2**30:.1f} of {du.total / 2**30:.1f} GiB [{card}]",
+          flush=True)
+    nums = {"shape": list(shape)}
+    ck1, rec = os.path.join(tmp, "c13a_ck"), os.path.join(tmp, "c13a_rec")
+    fo = os.path.join(tmp, "c13a_out.mrc")
+    torch.cuda.reset_peak_memory_stats()
+    with _SaveCapture() as cap, _PeakRss() as rss:
+        rc, wall, rep = _run_cli(
+            ["-in", fin, "-out", fo, "-mesh", str(MESH_DEVICES)] + args
+            + ["-save-progress", rec, "-save-progress-sharded", ck1], dev,
+            mesh=mesh_devs)
+    save_s = rep.timings.get("-save-progress-sharded", float("nan"))
+    rec_s = rep.timings.get("-save-progress", float("nan"))
+    nb = rep.counts.get("-save-progress-sharded bytes written", 0)
+    recs_f = [f"{rec}_tensor_{d}.rec" for d in range(6)]
+    rec_b = sum(os.path.getsize(f) for f in recs_f if os.path.exists(f))
+    nums["13a"] = {
+        "save_s": save_s, "save_bytes": nb, "save_gbps": _gbps(nb, save_s),
+        "rec_save_s": rec_s, "rec_bytes": rec_b,
+        "rec_gbps": _gbps(rec_b, rec_s), "wall_s": wall,
+        "card_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "rss_gib": rss.gib}
+    print(f"  save -mesh {MESH_DEVICES}: wall {wall:.3f} s; "
+          f"-save-progress-sharded {save_s:.3f} s for {nb} bytes "
+          f"({nb / 2**30:.2f} GiB, {_gbps(nb, save_s):.2f} GB/s); the .rec "
+          f"yardstick -save-progress {rec_s:.3f} s for {rec_b} bytes "
+          f"({_gbps(rec_b, rec_s):.2f} GB/s, through the gather); peak "
+          f"card memory {nums['13a']['card_gib']:.2f} GiB (with the "
+          f"captured copies of the saved arrays); host peak RSS "
+          f"{rss.gib:.2f} GiB; spans: {_spans(rep)} [{card}]", flush=True)
+    chk.check(rc == 0 and nb == ck_bytes and sorted(cap.arrays)
+              == sorted(CK_NAMES), f"13a save: exit {rc}, {nb} bytes "
+              f"written ({ck_bytes} expected: 10 channels a voxel), arrays "
+              f"{sorted(cap.arrays)}")
+    saved_out = mrc.read_mrc(fo).data
+    for f in [fo] + recs_f:
+        if os.path.exists(f):
+            os.unlink(f)
+
+    # the arrays load_sharded restores whole (each target row reads
+    # across the saved (2, 2) blocks) == those the run saved; the (2, 2)
+    # grid's restore is the CLI's -mesh 4 load below
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = CK.load_sharded(ck1, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    nd = {k: _words_differ(cap.arrays[k], got[k]) for k in CK_NAMES}
+    nums["13a"]["load_all_s (whole)"] = secs
+    chk.check(sorted(got) == sorted(CK_NAMES) and not any(nd.values()),
+              f"13a: load_sharded whole == the saved arrays: words "
+              f"differing {nd}; {secs:.3f} s for {ck_bytes} bytes "
+              f"({_gbps(ck_bytes, secs):.2f} GB/s) [{card}]")
+    del got
+    del cap.arrays
+    torch.cuda.empty_cache()
+
+    # the CLI's load, without a mesh and with -mesh 4, outputs in memory
+    outs = {}
+    for label, extra, devs in (("no mesh", [], None),
+                               ("-mesh 4", ["-mesh", str(MESH_DEVICES)],
+                                mesh_devs)):
+        torch.cuda.reset_peak_memory_stats()
+        with _HeldOutput(False) as held, _PeakRss() as rss:
+            rc, wall, rep = _run_cli(["-in", fin, "-out", fo] + args
+                                     + ["-load-progress-sharded", ck1]
+                                     + extra, dev, mesh=devs)
+        outs[label] = held.arrays.get(fo)
+        ld_s = rep.timings.get("-load-progress-sharded", float("nan"))
+        lb = rep.counts.get("-load-progress-sharded bytes read", 0)
+        nums["13a"][f"load ({label})"] = {
+            "load_s": ld_s, "bytes": lb, "gbps": _gbps(lb, ld_s),
+            "wall_s": wall,
+            "card_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "rss_gib": rss.gib}
+        print(f"  load, {label}: wall {wall:.3f} s; -load-progress-sharded "
+              f"{ld_s:.3f} s for {lb} bytes ({_gbps(lb, ld_s):.2f} GB/s); "
+              f"peak card memory "
+              f"{nums['13a'][f'load ({label})']['card_gib']:.2f} GiB; host "
+              f"peak RSS {rss.gib:.2f} GiB; spans: {_spans(rep)}; "
+              f"{rep.format_paths()} [{card}]", flush=True)
+        chk.check(rc == 0 and outs[label] is not None and lb == vote_bytes
+                  and rep.paths.get("vote_eigen") == "plain",
+                  f"13a load, {label}: exit {rc}, {lb} bytes read, the "
+                  f"loaded vote scored by the full solver "
+                  f"({rep.paths.get('vote_eigen')})")
+    a, b = outs["no mesh"], outs["-mesh 4"]
+    ok = a is not None and b is not None and a.shape == b.shape == shape
+    nd = int((a.view(np.int32) != b.view(np.int32)).sum()) if ok else -1
+    chk.check(ok and nd == 0 and bool(np.isfinite(a).all())
+              and float(np.abs(a).max()) > 0,
+              f"13a: -load-progress-sharded without a mesh == with -mesh "
+              f"4: {nd} voxels differ; finite, not all 0")
+    # 13b saves anew: 13a's checkpoint goes first
+    shutil.rmtree(ck1, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # 13b: two gloo ranks on the card save and load; one process loads
+    blocks = [f"{dev}:0" if dev == "cuda" else dev] * RANK_BLOCKS
+    ck2 = os.path.join(tmp, "c13b_ck")
+    o_save, o_load = (os.path.join(tmp, f"c13b_{t}.mrc")
+                      for t in ("save", "load"))
+    runs = [("13b save", ["-in", fin, "-out", o_save, "-mesh", "-1"] + args
+             + ["-save-progress-sharded", ck2]),
+            ("13b load", ["-in", fin, "-out", o_load, "-mesh", "-1"] + args
+             + ["-load-progress-sharded", ck2])]
+    print(f"== phase 13b: two ranks on {card.split(',')[0]} over gloo, each "
+          f"with blocks on {blocks}: the (2, 2) grid; the save, the load; "
+          f"then one process loads their checkpoint without a mesh",
+          flush=True)
+    t0 = time.perf_counter()
+    done = _spawn_cluster(tmp, 2, "gloo", [
+        {"label": lab, "argv": a, "devices": blocks} for lab, a in runs],
+        dev, timeout=C13_TIMEOUT)
+    print(f"  the two ranks: {time.perf_counter() - t0:.1f} s with their "
+          f"start-up", flush=True)
+    recs = _rank_results(chk, "13b two ranks over gloo", done)
+    if recs is not None:
+        nums["13b"] = {}
+        for i, (lab, argv) in enumerate(runs):
+            rr = [recs[r]["runs"][i] for r in range(2)]
+            stage = ("-save-progress-sharded" if i == 0
+                     else "-load-progress-sharded")
+            key = stage + (" bytes written" if i == 0 else " bytes read")
+            secs = [rec["timings"].get(stage, float("nan")) for rec in rr]
+            nbs = [rec["counts"].get(key, 0) for rec in rr]
+            nums["13b"][lab] = {"s": secs, "bytes": nbs,
+                                "gbps": [_gbps(n, t)
+                                         for n, t in zip(nbs, secs)],
+                                "wall_s": [rec["wall"] for rec in rr],
+                                "card_gib": [rec["card_gib"] for rec in rr],
+                                "rss_gib": [rec["rss_gib"] for rec in rr]}
+            for r, rec in enumerate(rr):
+                _print_rank(lab, r, rec, card)
+            print(f"  {lab}: {stage} {secs[0]:.3f} / {secs[1]:.3f} s for "
+                  f"{nbs[0]} / {nbs[1]} bytes a rank "
+                  f"({_gbps(nbs[0], secs[0]):.2f} / "
+                  f"{_gbps(nbs[1], secs[1]):.2f} GB/s) [{card}]", flush=True)
+            want = [[argv[3]], []]
+            if i == 0:
+                want = [_rank_ck_files(ck2, 0, 2)
+                        + [f"{ck2}.partial/metadata.json", argv[3]],
+                        _rank_ck_files(ck2, 1, 2)]
+            half = (ck_bytes if i == 0 else vote_bytes) // 2
+            chk.check(all(rec["rc"] == 0 for rec in rr)
+                      and [rec["writes"] for rec in rr] == want
+                      and nbs == [half, half]
+                      and all(rec["checkpoint_moved"] == [0] for rec in rr),
+                      f"{lab}: each rank wrote its own files "
+                      f"({[len(rec['writes']) for rec in rr]} files: the "
+                      f"save its blocks, rank 0 the metadata and the "
+                      f"output), {nbs} bytes a rank ({half} expected), "
+                      f"bytes exchanged during the checkpoint call "
+                      f"{[rec['checkpoint_moved'] for rec in rr]} (0 "
+                      f"expected)")
+        for label, f, want in (("13b: the two ranks' saving run == 13a's",
+                                o_save, saved_out),
+                               ("13b: the two ranks' load == 13a's -mesh 4 "
+                                "load", o_load, outs["-mesh 4"])):
+            got = mrc.read_mrc(f).data
+            nd = (int((got.view(np.int32) != want.view(np.int32)).sum())
+                  if want is not None and got.shape == want.shape else -1)
+            chk.check(nd == 0, f"{label}: {nd} voxels differ")
+        with _HeldOutput(False) as held:
+            rc, wall, rep = _run_cli(["-in", fin, "-out", fo] + args
+                                     + ["-load-progress-sharded", ck2], dev)
+        one = held.arrays.get(fo)
+        nd = (int((one.view(np.int32) != outs["no mesh"].view(np.int32))
+                  .sum()) if one is not None and outs["no mesh"] is not None
+              else -1)
+        ld_s = rep.timings.get("-load-progress-sharded", float("nan"))
+        nums["13b"]["one process load_s"] = ld_s
+        chk.check(rc == 0 and nd == 0,
+                  f"13b: one process without a mesh loads the two ranks' "
+                  f"checkpoint: output == 13a's: {nd} voxels differ; load "
+                  f"{ld_s:.3f} s, wall {wall:.3f} s [{card}]")
+    for f in (o_save, o_load, fin, fin5):
+        if os.path.exists(f):
+            os.unlink(f)
+    shutil.rmtree(ck2, ignore_errors=True)
+    return nums
+
+
 def _union_us(intervals):
     """Microseconds covered by the union of (start, end) intervals."""
     total, end = 0.0, -np.inf
@@ -4141,6 +4464,10 @@ def main() -> int:
         handlers = None
         if blob is not None:
             handlers = chk.run(phase_cluster_handlers, chk, card, tmp, blob)
+        checkpoint = None
+        if mesh_cli is not None:
+            checkpoint = chk.run(phase_checkpoint, chk, card, tmp,
+                                 mesh_cli[1][0])
     print(f"total {time.perf_counter() - t_start:.1f} s")
     if chk.failed:
         print(f"chip_smoke: {len(chk.failed)} check(s) failed:",
@@ -4184,6 +4511,7 @@ def main() -> int:
                         or name not in ranks[0][0] else
                         [sum(c[r][name] for c in ranks) for r in range(2)]})
     import torch
+    print(json.dumps({"checkpoint": checkpoint}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -4204,7 +4532,7 @@ def phase_cards(chk, card, tmp, n, dev="cuda", backend="nccl"):
     rank_dev = ["cuda:{rank}"] if dev == "cuda" else [dev]
     cards = [f"cuda:{i}" for i in range(n)] if dev == "cuda" else [dev] * n
     thr, fin6 = _connect_threshold(chk, card, tmp, MAIN_SHAPE, dev)
-    vol, _ = membrane_phantom(MESH_SHAPE, seed=SEED + 53, thickness=3.0,
+    vol, _ = membrane_phantom(CARDS_SHAPE, seed=SEED + 53, thickness=3.0,
                               device=dev)
     fin5 = os.path.join(tmp, "c11_in.mrc")
     mrc.write_mrc(fin5, vol.cpu().numpy())
@@ -4213,6 +4541,7 @@ def phase_cards(chk, card, tmp, n, dev="cuda", backend="nccl"):
     args5 = "-w 1 -membrane minima 3 -tv 1.5 -tv-angle-exponent 4".split()
     conn = CONNECT_ARGS.split() + ["-connect", repr(thr), "-connect-angle",
                                    "30"]
+    ref = os.path.join(tmp, "c11_ref.mrc")
     for k in sorted({2, n}):
         for lab, fin, args in ((f"11a ({k} ranks)", fin5, args5),
                                (f"11b ({k} ranks)", fin6, conn)):
@@ -4221,6 +4550,8 @@ def phase_cards(chk, card, tmp, n, dev="cuda", backend="nccl"):
                   f"{cards[:k]} [{card}]", flush=True)
             one, two = (os.path.join(tmp, f"c11_{t}.mrc")
                         for t in ("one", "ranks"))
+            if lab == f"11a ({n} ranks)":
+                one = ref       # kept for 13c
             rc, wall, rep = _run_cli(["-in", fin, "-out", one, "-mesh",
                                       str(k)] + args, dev, mesh=cards[:k])
             chk.check(rc == 0, f"{lab} one process: exit {rc}")
@@ -4251,9 +4582,103 @@ def phase_cards(chk, card, tmp, n, dev="cuda", backend="nccl"):
             _same_files(chk, f"{lab}: the ranks' output == one process's",
                         two, one)
             for f in (one, two):
-                os.unlink(f)
-    for f in (fin5, fin6):
-        os.unlink(f)
+                if f != ref:
+                    os.unlink(f)
+    phase_checkpoint_cards(chk, card, tmp, n, fin5, ref, dev, backend)
+    for f in (fin5, fin6, ref):
+        if os.path.exists(f):
+            os.unlink(f)
+
+
+def phase_checkpoint_cards(chk, card, tmp, n, fin5, ref, dev="cuda",
+                           backend="nccl"):
+    """13c (``--nccl``): ``n`` ranks, one card each, save 5c's run
+    with ``-save-progress-sharded``; two ranks and one process ``-mesh
+    4`` (``-mesh 2`` on two cards) load the checkpoint: the saving run's
+    output equals 11a's one process (``ref``), the loads equal each
+    other, the checkpoint's arrays equal those one process ``-mesh n``
+    computes without it, each rank writes its own blocks and exchanges
+    nothing during the save and the load."""
+    import shutil
+    from visfd_tpu_torch.io import checkpoint as CK
+    from visfd_tpu_torch.parallel.mesh import _grid_shape, make_mesh
+    rank_dev = ["cuda:{rank}"] if dev == "cuda" else [dev]
+    cards = [f"cuda:{i}" for i in range(n)] if dev == "cuda" else [dev] * n
+    k1 = min(4, n)
+    args5 = "-w 1 -membrane minima 3 -tv 1.5 -tv-angle-exponent 4".split()
+    ck = os.path.join(tmp, "c13c_ck")
+    o_save, o_two, o_one = (os.path.join(tmp, f"c13c_{t}.mrc")
+                            for t in ("save", "two", "one"))
+    print(f"== phase 13c: {n} ranks over {backend}, one card each, save 5c's "
+          f"run with -save-progress-sharded; 2 ranks and one process -mesh "
+          f"{k1} load it; disk free "
+          f"{shutil.disk_usage(tmp).free / 2**30:.1f} GiB [{card}]",
+          flush=True)
+    for lab, k, argv in (
+            ("13c save", n, ["-in", fin5, "-out", o_save, "-mesh", "-1"]
+             + args5 + ["-save-progress-sharded", ck]),
+            ("13c load", 2, ["-in", fin5, "-out", o_two, "-mesh", "-1"]
+             + args5 + ["-load-progress-sharded", ck])):
+        done = _spawn_cluster(tmp, k, backend, [
+            {"label": lab, "argv": argv, "devices": rank_dev}], dev)
+        recs = _rank_results(chk, f"{lab} over {backend}", done)
+        if recs is None:
+            continue
+        runs = [rec["runs"][0] for rec in recs]
+        stage = ("-save-progress-sharded" if lab == "13c save"
+                 else "-load-progress-sharded")
+        for r, rec in enumerate(runs):
+            _print_rank(lab, r, rec, card)
+            print(f"  {lab} rank {r}: {stage} "
+                  f"{rec['timings'].get(stage, float('nan')):.3f} s, "
+                  f"{rec['counts']} [{card}]", flush=True)
+        # rank r drives card r, block (r // ny, r % ny) of the grid
+        want = [[argv[3]]] + [[] for _ in runs[1:]]
+        if lab == "13c save":
+            ny = _grid_shape(n)[1]
+            want = [[f"{ck}.partial/{name}.{r // ny}.{r % ny}.npy"
+                     for name in CK_NAMES] for r in range(n)]
+            want[0] += [f"{ck}.partial/metadata.json", argv[3]]
+        chk.check([rec["writes"] for rec in runs] == want
+                  and all(rec["checkpoint_moved"] == [0] for rec in runs),
+                  f"{lab}: each rank wrote its own files "
+                  f"({[len(rec['writes']) for rec in runs]} files), bytes "
+                  f"exchanged during the checkpoint call "
+                  f"{[rec['checkpoint_moved'] for rec in runs]} (0 expected)")
+    rc, wall, rep = _run_cli(["-in", fin5, "-out", o_one, "-mesh", str(k1)]
+                             + args5 + ["-load-progress-sharded", ck], dev,
+                             mesh=cards[:k1])
+    chk.check(rc == 0, f"13c load, one process -mesh {k1}: exit {rc}; "
+                       f"wall {wall:.3f} s; {_spans(rep)} [{card}]")
+    # the checkpoint's contents against a run that does not read it: one
+    # process -mesh n over the same cards computes the arrays it would
+    # save (held on the cards, not written), and load_sharded restores
+    # the ranks' checkpoint onto that grid; every block bit for bit, so
+    # a rank that wrote another cell's data under its name shows here
+    mesh_n = make_mesh(n, devices=cards)
+    with _SaveCapture(write=False) as cap, _HeldOutput(False):
+        rc, wall, _ = _run_cli(["-in", fin5, "-out", o_one + ".ref",
+                                "-mesh", str(n)] + args5
+                               + ["-save-progress-sharded", ck + ".ref"],
+                               dev, mesh=cards)
+    got = CK.load_sharded(ck, like=mesh_n) if rc == 0 else {}
+    nd = {k: (_words_differ(cap.arrays[k], got[k])
+              if k in got and k in cap.arrays else -1) for k in CK_NAMES}
+    chk.check(rc == 0 and not any(nd.values()),
+              f"13c: the {n} ranks' checkpoint == the arrays one process "
+              f"-mesh {n} computes without it: words differing {nd} "
+              f"(exit {rc}, wall {wall:.3f} s) [{card}]")
+    del got, cap
+    if os.path.exists(o_save):
+        _same_files(chk, f"13c: {n} ranks' saving run == one process "
+                         f"-mesh {n}", o_save, ref)
+    if os.path.exists(o_two) and os.path.exists(o_one):
+        _same_files(chk, f"13c: 2 ranks' load == one process -mesh {k1}'s",
+                    o_two, o_one)
+    for f in (o_save, o_two, o_one):
+        if os.path.exists(f):
+            os.unlink(f)
+    shutil.rmtree(ck, ignore_errors=True)
 
 
 def nccl_main() -> int:

@@ -182,19 +182,10 @@ def test_fraction_threshold_bit_identical(masked):
         assert got == want == np.sort(vals)[::-1][k]
 
 
-@pytest.mark.parametrize("flag,env", [
-    ("-load-progress-sharded p", False), ("-save-progress-sharded p", False),
-    ("-gaus 2", False), ("-coords c.txt", False),
-    ("-save-progress-sharded p -mesh 4", True)])
-def test_cli_names_unhandled_flags(phantom, flag, env, monkeypatch):
-    """What the port still refuses names itself: the orbax checkpoints
-    (in a multi-process cluster too, refused before the cluster is
-    joined, so nothing is contacted), a misspelt flag and another tool's
-    flag."""
-    if env:
-        monkeypatch.setenv("VISFD_COORDINATOR", "localhost:1234")
-        monkeypatch.setenv("VISFD_NUM_PROCESSES", "2")
-        monkeypatch.setenv("VISFD_PROCESS_ID", "0")
+@pytest.mark.parametrize("flag", ["-gaus 2", "-coords c.txt"])
+def test_cli_names_unhandled_flags(phantom, flag):
+    """What the port refuses names itself: a misspelt flag and another
+    tool's flag."""
     argv = (f"-in {phantom}/in.mrc -w 1 -membrane minima 2.5 -tv 1.0 "
             f"{flag}").split()
     with pytest.raises(InputError, match=flag.split()[0]):

@@ -7,7 +7,7 @@ mesh_devices=["cpu"] * 4)`` on ``tests/test_torch_cli.py``'s phantom,
 one-process ``-mesh 8`` over ``["cpu"] * 8``, blocks (5, 14).  The
 commands: every handler.  The sharded ones run over the global grid:
 the flagship (with ``-connect``, ``-normals-file``,
-``-save/-load-progress``, ``-cl``), ``-edge``, ``-curve``, ``-bin 2``
+``-save/-load-progress``, ``-save/-load-progress-sharded``, ``-cl``), ``-edge``, ``-curve``, ``-bin 2``
 with ``-connect`` (a (24, 28, 40) phantom, binned to (12, 14, 20)), the
 stand-alone ``-connect``, the separable, dense and median filters,
 morphology, ``-template-gauss``, ``-doggxy``, ``-watershed-device``
@@ -21,9 +21,20 @@ volume the grid does not divide (run whole on every rank).  For each:
 
 * rank 0 writes every file (tomograms, PLYs, text lists) and prints
   ``writing tomogram`` where the command writes one; rank 1 writes
-  nothing and prints ``skipping tomogram write``;
+  nothing and prints ``skipping tomogram write``.  The one exception is
+  ``-save-progress-sharded``: each rank writes the block files of its
+  own blocks (rank 1 those of grid rows 2 and 3), rank 0 alone
+  ``metadata.json``; the save and the load move nothing through the
+  process group (``parallel/distributed.traffic`` gains no bytes during
+  them);
 * every file equals the one-process ``-mesh 8`` run's bit for bit
-  (``-supervised-multi`` writes none: its thresholds are compared);
+  (``-supervised-multi`` writes none: its thresholds are compared; a
+  checkpoint's every block file and ``metadata.json``); the two
+  checkpoints load without a mesh to the same arrays and the same
+  output (the cluster's score, computed on its (4, 2) blocks, may differ
+  by an ulp from a whole volume's on the CPU, where the twins' SIMD
+  loops leave a block's last voxels to scalar code: that comparison is
+  ``chip_smoke.py`` phase 13's, on the card, bit for bit);
 * the flagship (with and without ``-connect``), ``-blob``,
   ``-watershed-device`` and the ``-bin 2 … -connect`` command agree
   with the JAX CLI's ``-mesh 8`` run (its Pallas kernels in interpret
@@ -49,6 +60,7 @@ from visfd_tpu.cli import filter_mrc as JFM
 from visfd_tpu_torch.cli import filter_mrc as TFM
 from visfd_tpu_torch.cli import settings as S
 from visfd_tpu_torch.features import blob as TB
+from visfd_tpu_torch.io import checkpoint as CK
 from visfd_tpu_torch.io import mrc
 from visfd_tpu_torch.io.coords import read_blob_coords_file
 from visfd_tpu_torch.utils.phantom import blob_phantom, membrane_phantom
@@ -67,6 +79,9 @@ CASES = {
     "save": MEMBRANE + " -save-progress {out}",
     "load": MEMBRANE + " -load-progress {d}/save_{tag} -connect {thr} "
                        "-connect-angle 30",
+    "save_sharded": MEMBRANE + " -save-progress-sharded {out}_ck",
+    "load_sharded": MEMBRANE + " -load-progress-sharded "
+                               "{d}/save_sharded_{tag}_ck",
     "intensity": MEMBRANE + " -cl -1 1.5",
     "edge": "-w 1 -edge minima 1.5 -tv 1.0 -tv-angle-exponent 4",
     "curve": "-w 1 -curve minima 2.5 -tv 1.0 -tv-angle-exponent 4",
@@ -123,9 +138,19 @@ def _argv(d, case, tag, thr):
             + CASES[case].format(out=out, d=d, tag=tag, **thr)).split()
 
 
-def _written(d, case, tag):
-    """The files ``case`` writes, in the order it writes them."""
+def _written(d, case, tag, rank=0):
+    """The files ``case`` writes on ``rank``, in the order it writes
+    them."""
     out = f"{d}/{case}_{tag}"
+    if case == "save_sharded":
+        # each rank its own blocks of the (4, 2) grid: rank 0 rows 0-1
+        blocks = [f"{out}_ck.partial/{name}.{iz}.{iy}.npy"
+                  for name in ("vote", "saliency", "direction")
+                  for iz in (2 * rank, 2 * rank + 1) for iy in range(2)]
+        return blocks + ([f"{out}_ck.partial/metadata.json", f"{out}.mrc"]
+                         if rank == 0 else [])
+    if rank:
+        return []
     lists = {"find_minima", "find_maxima", "blob", "distance_voxels",
              "random_spheres"}
     if case == "save":
@@ -147,13 +172,26 @@ import contextlib, io, json, sys, traceback
 from datetime import timedelta
 import torch
 torch.set_num_threads(2)
-import torch.distributed as dist
 from visfd_tpu_torch.cli import filter_mrc as TFM
+from visfd_tpu_torch.io import checkpoint as CK
 from visfd_tpu_torch.parallel import distributed as D
 d, cases = sys.argv[1], json.loads(sys.argv[2])
 D.init_distributed(backend="gloo", timeout=timedelta(seconds=120))
 rank = D.process_index()
-writes = []
+writes, moved = [], []
+def count_traffic(fn):
+    # the bytes every kind of exchange moved during the call
+    def total():
+        return sum(v["bytes_sent"] + v["bytes_received"]
+                   for v in D.traffic.values())
+    def wrapped(*a, **k):
+        before = total()
+        out = fn(*a, **k)
+        moved.append(total() - before)
+        return out
+    return wrapped
+TFM.save_sharded = count_traffic(TFM.save_sharded)
+TFM.load_sharded = count_traffic(TFM.load_sharded)
 def spy(fn):
     def wrapped(path, *a, **k):
         writes.append(str(path))
@@ -168,9 +206,11 @@ def spy_open(path, mode="r", *a, **k):
         writes.append(str(path))
     return open(path, mode, *a, **k)
 TFM.open = spy_open
+CK.open = spy_open
 results = {}
 for case, argv in cases:
     writes.clear()
+    moved.clear()
     err = io.StringIO()
     try:
         with contextlib.redirect_stderr(err):
@@ -179,8 +219,8 @@ for case, argv in cases:
     except Exception:
         error = traceback.format_exc()
     results[case] = {"error": error, "stderr": err.getvalue(),
-                     "writes": list(writes)}
-    dist.barrier()
+                     "writes": list(writes), "moved": list(moved)}
+    D.barrier()
 json.dump(results, open(f"{d}/results{rank}.json", "w"))
 D.shutdown_distributed()
 print(f"rank{rank}-done")
@@ -286,13 +326,18 @@ def test_cluster_cli_equals_one_process(cluster, one_process, case):
     rank0, rank1 = cluster[case]
     assert rank0["error"] is None, rank0["error"]
     assert rank1["error"] is None, rank1["error"]
-    assert rank1["writes"] == []
+    assert rank1["writes"] == _written(d, case, "two", rank=1)
     want = _written(d, case, "two")
     assert rank0["writes"] == want
     if want and want[-1].endswith(".mrc"):
         assert "writing tomogram" in rank0["stderr"]
         assert "skipping tomogram write" in rank1["stderr"]
+    if case.endswith("_sharded"):
+        # one save_sharded or load_sharded call a rank, nothing moved
+        assert rank0["moved"] == rank1["moved"] == [0]
+        want = want + _written(d, case, "two", rank=1)
     for path in want:
+        path = path.replace(".partial/", "/")     # the saved checkpoint
         one = path.replace("_two", "_one")
         if path.endswith((".mrc", ".rec")):
             np.testing.assert_array_equal(_img(path), _img(one))
@@ -350,3 +395,25 @@ def test_cluster_cli_matches_jax_mesh(cluster, phantom, monkeypatch, case):
     else:
         assert want.max() > 2                # several labels
         np.testing.assert_array_equal(got, want)
+
+
+def test_cluster_checkpoint_loads_without_a_mesh(cluster, one_process):
+    """The two ranks' checkpoint and one process's (both of the (4, 2)
+    grid) restore whole to the same arrays, and ``-load-progress-sharded``
+    without a mesh gives the same output from either."""
+    d, _ = one_process
+    assert cluster["save_sharded"][0]["error"] is None
+    two, one = (f"{d}/save_sharded_{t}_ck" for t in ("two", "one"))
+    got, want = (CK.load_sharded(p, device="cpu") for p in (two, one))
+    assert sorted(got) == ["direction", "saliency", "vote"]
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), want[k].numpy())
+    outs = []
+    for p in (two, one):
+        o = f"{p}_whole.mrc"
+        assert TFM.run(f"-in {d}/in.mrc -out {o} {MEMBRANE} "
+                       f"-load-progress-sharded {p}".split(), device="cpu",
+                       report=Report(None)) == 0
+        outs.append(_img(o))
+    assert np.abs(outs[0]).max() > 0
+    np.testing.assert_array_equal(outs[0], outs[1])

@@ -12,9 +12,9 @@
   -normals-file`` gives equal labels and PLY; ``-edge … -tv`` agrees to
   the TV tolerance (rtol 2e-4, atol 2e-5 of the largest output);
   ``-save-progress`` writes .rec files equal to JAX's to atol 5e-6 of
-  the largest, and ``-load-progress`` of them gives JAX's labels.
-* The refusals: the JAX package's orbax checkpoints (``-mesh`` with
-  ``-connect``, ``-edge`` and ``-normals-file`` runs:
+  the largest, and ``-load-progress`` of them gives JAX's labels
+  (``-save/-load-progress-sharded``: tests/test_torch_checkpoint.py;
+  ``-mesh`` with ``-connect``, ``-edge`` and ``-normals-file`` runs:
   tests/test_torch_cli_segment.py).
 """
 
@@ -26,7 +26,6 @@ import torch
 
 from visfd_tpu.cli import filter_mrc as JFM
 from visfd_tpu_torch.cli import filter_mrc as TFM
-from visfd_tpu_torch.cli.settings import InputError
 from visfd_tpu_torch.io import mrc
 from visfd_tpu_torch.io.pointcloud import read_ply_pointcloud
 from visfd_tpu_torch.utils.phantom import membrane_phantom
@@ -222,13 +221,3 @@ def test_save_load_progress_under_mesh(phantom):
     want = _img(d / "ld_one.mrc")
     np.testing.assert_allclose(_img(d / "ld_mesh.mrc"), want, rtol=1e-5,
                                atol=1e-6 * np.abs(want).max())
-
-
-@pytest.mark.parametrize("flag,match", [
-    ("-save-progress-sharded p", "-save-progress-sharded: an orbax"),
-    ("-load-progress-sharded p", "-load-progress-sharded: an orbax"),
-])
-def test_cli_refusals(phantom, flag, match):
-    argv = f"-in {phantom}/in.mrc {MEMBRANE} {flag}".split()
-    with pytest.raises(InputError, match=match):
-        TFM.run(argv, device="cpu", mesh_devices=["cpu"] * 4)

@@ -50,7 +50,8 @@ SLICE_MODULES = [
     "visfd_tpu_torch.cli.histogram_mrc", "visfd_tpu_torch.cli.voxelize_mesh",
     "visfd_tpu_torch.cli.draw_filter_1d",
     "visfd_tpu_torch.parallel.distributed", "visfd_tpu_torch.entry",
-    "visfd_tpu_torch.utils.profiling",
+    "visfd_tpu_torch.utils.profiling", "visfd_tpu_torch.io.checkpoint",
+    "visfd_tpu_torch.core", "visfd_tpu_torch.core.grid",
     # the card's script and tests, run where jax is absent
     "chip_smoke", "tests.test_torch_cuda_kernels",
 ]
@@ -68,6 +69,21 @@ def test_port_never_imports_jax():
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'visfd_tpu'))\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", code], cwd=root,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+@pytest.mark.parametrize("tool", ["print_mrc_stats", "histogram_mrc",
+                                  "convert_to_float", "crop_mrc",
+                                  "draw_filter_1d", "voxelize_mesh"])
+def test_host_tools_start_without_torch(tool):
+    """The host-only tools import numpy and io/mrc alone: the package's
+    VoxelGrid export is lazy, so torch stays out of sys.modules until a
+    caller asks for it."""
+    code = (f"import sys, visfd_tpu_torch.cli.{tool}\n"
+            "sys.exit(1 if 'torch' in sys.modules else 0)\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     r = subprocess.run([sys.executable, "-c", code], cwd=root,
                        capture_output=True, text=True, timeout=120)

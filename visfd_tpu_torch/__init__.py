@@ -9,3 +9,15 @@ tensor and a plain PyTorch twin of it for a CPU tensor.  The sequential
 host floods are C++ under ``native/``, built by ``g++`` at first use.
 The package never imports jax.
 """
+
+
+__all__ = ["VoxelGrid"]
+
+
+def __getattr__(name):
+    # VoxelGrid loads torch: exported lazily, so that the host-only tools
+    # (print_mrc_stats, histogram_mrc, ...) start without it
+    if name == "VoxelGrid":
+        from visfd_tpu_torch.core.grid import VoxelGrid
+        return VoxelGrid
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

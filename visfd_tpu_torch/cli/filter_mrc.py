@@ -18,7 +18,11 @@ goes to the intensity map as it is.
   with its principal eigenvector under ``-connect``
   (``ops/eigen_cuda.sym3_score``).  ``-edge`` takes the JAX CLI's
   non-fused branch (gradient, voting, the vote scored by
-  ``linalg/sym3``), and so does ``-load-progress``'s vote.
+  ``linalg/sym3``), and so does a loaded vote (``-load-progress``, or
+  ``-load-progress-sharded``).  ``-save-progress-sharded`` /
+  ``-load-progress-sharded`` keep the vote, the saliency and the
+  direction in a checkpoint directory (``io/checkpoint``) of which each
+  rank writes and reads only its own blocks; a restore takes any mesh.
   ``-connect`` runs ``segment/connect.label_connected``: gates, seeds
   and candidate compaction on the card, the native flood on the host;
   ``-normals-file`` walks the chosen cluster on the host and writes a
@@ -78,8 +82,7 @@ result.
 The port takes every flag the settings parser takes, which raises
 ``InputError`` for the flags it does not know and for the renamed ones
 (``-surface``, ``-planar``, ``-planar-tv``, ``-bs``,
-``--membrane-normals-file``), with the JAX CLI's message.  The orbax
-``-save/-load-progress-sharded`` are refused, naming themselves.  A
+``--membrane-normals-file``), with the JAX CLI's message.  A
 ``-membrane|-curve|-edge`` volume with a side below 3 voxels is refused,
 as the JAX CLI's route for it (finite differences clamped to the nearest
 interior voxel) raises.
@@ -107,6 +110,7 @@ from visfd_tpu_torch.features import experimental as E
 from visfd_tpu_torch.features import hessian as FH
 from visfd_tpu_torch.features import supervised as SUP
 from visfd_tpu_torch.io import mrc
+from visfd_tpu_torch.io.checkpoint import load_sharded, save_sharded
 from visfd_tpu_torch.io.coords import (
     fmt_g, read_blob_coords_file, read_coordinates, write_blob_coords_file)
 from visfd_tpu_torch.io.pointcloud import write_oriented_pointcloud_ply
@@ -134,23 +138,6 @@ from visfd_tpu_torch.segment.extrema import find_extrema, flat_to_xyz
 from visfd_tpu_torch.segment.propagate import propagate_watershed
 from visfd_tpu_torch.segment.watershed import watershed
 from visfd_tpu_torch.utils.progress import Report, stage
-
-# flags the settings parser takes that this port refuses, with the reason
-_REFUSED = {
-    "save_progress_sharded": ("-save-progress-sharded", "an orbax "
-                              "checkpoint, a JAX format; use -save-progress"),
-    "load_progress_sharded": ("-load-progress-sharded", "an orbax "
-                              "checkpoint, a JAX format; use -load-progress"),
-}
-
-
-def _check_settings(s: Settings) -> None:
-    """Raise InputError, naming the flag, for what the settings parser
-    takes and this port does not run."""
-    for attr, (flag, why) in _REFUSED.items():
-        if getattr(s, attr):
-            raise InputError(f"Error: visfd_tpu_torch refuses {flag}: {why}")
-
 
 def _join_cluster(mesh_devices) -> None:
     """``init_distributed`` for a -mesh run: gloo when the rank's
@@ -319,9 +306,10 @@ def handle_tv(s: Settings, img: mrc.MrcImage, x_np, mask_np, w, device,
         # kernel skips the all-zero source planes (feature.hpp:1704-1709)
         tv_sparse = bool(s.hessian_score_threshold_is_a_fraction
                          and float(s.hessian_score_threshold) <= 0.5)
-        if s.load_intermediate_fname_base:
-            vote = _load_progress(s.load_intermediate_fname_base, mesh,
-                                  device)
+        if s.load_progress_sharded or s.load_intermediate_fname_base:
+            with stage("-load-progress-sharded" if s.load_progress_sharded
+                       else "-load-progress", rep):
+                vote = _load_progress(s, mesh, device, x_np.shape, rep)
             if keep is not None:
                 vote = bmap(lambda v, k: v * k[None], vote, keep)
         else:
@@ -344,7 +332,8 @@ def handle_tv(s: Settings, img: mrc.MrcImage, x_np, mask_np, w, device,
                 rep.record_path("tv", route + ("-sparse" if tv_sparse
                                                and on_card else ""))
         with stage("eigen score of the vote tensor", rep):
-            if edge or s.load_intermediate_fname_base:
+            if (edge or s.load_intermediate_fname_base
+                    or s.load_progress_sharded):
                 # the JAX CLI scores a channel-last vote with the full
                 # solver (its non-fused branch); the vector comes from
                 # principal_sym3, below
@@ -375,14 +364,26 @@ def handle_tv(s: Settings, img: mrc.MrcImage, x_np, mask_np, w, device,
                     mrc.write_mrc(fname, vote_np[d] if sharded
                                   else to_host_np(vote[d]), header=img.header)
 
+    if s.save_progress_sharded and vote is not None:
+        # each rank writes its own blocks: no gather
+        if is_writer():
+            print(f'writing sharded checkpoint "{s.save_progress_sharded}"',
+                  file=sys.stderr)
+        with stage("-save-progress-sharded", rep):
+            rep.record_count("-save-progress-sharded bytes written",
+                             save_sharded(s.save_progress_sharded, {
+                                 "vote": vote, "saliency": score,
+                                 "direction": direction}))
+
     rep.line(rep.format_paths())
     direction_np = None
     labels_img = None
     if s.cluster_connected_voxels and vote is not None:
         if vec is None:
-            vec = bmap(lambda v: sym3.principal_sym3(
-                sym3.flat_to_full(v.movedim(0, -1)), order=order)[1]
-                .movedim(-1, 0), vote)
+            vec = bmap(lambda vote_b: _by_slabs(
+                lambda v: sym3.principal_sym3(sym3.flat_to_full(
+                    v.movedim(0, -1)), order=order)[1].movedim(-1, 0),
+                vote_b), vote)
         res = label_connected(
             score, mask=mask,
             threshold_saliency=s.connect_threshold_saliency,
@@ -420,12 +421,23 @@ def handle_tv(s: Settings, img: mrc.MrcImage, x_np, mask_np, w, device,
     return out
 
 
-def _load_progress(base, mesh, device):
-    """The six ``{base}_tensor_{d}.rec`` channels of a saved vote tensor,
-    channel-major, on ``device`` (or sharded over ``mesh``)."""
+def _load_progress(s: Settings, mesh, device, zyx, rep: Report):
+    """The saved vote tensor, channel-major, on ``device`` (or sharded
+    over ``mesh``): from the checkpoint of ``-load-progress-sharded``
+    (each rank reads the blocks that meet its own), else from the six
+    ``{base}_tensor_{d}.rec`` channels of ``-load-progress``."""
+    if s.load_progress_sharded:
+        print(f'loading sharded checkpoint "{s.load_progress_sharded}"',
+              file=sys.stderr)
+        vote = load_sharded(s.load_progress_sharded, like=mesh,
+                            device=device, names=("vote",), zyx=zyx)["vote"]
+        rep.record_count("-load-progress-sharded bytes read", sum(
+            b.numel() * b.element_size() for _, _, b in as_blocks(vote)
+            .cells()))
+        return vote
     chans = []
     for d in range(6):
-        fname = f"{base}_tensor_{d}.rec"
+        fname = f"{s.load_intermediate_fname_base}_tensor_{d}.rec"
         print(f'loading "{fname}"', file=sys.stderr)
         chans.append(mrc.read_mrc(fname).data)
     vote = np.stack(chans).astype(np.float32)
@@ -434,13 +446,25 @@ def _load_progress(base, mesh, device):
     return torch.as_tensor(vote, device=device)
 
 
+# voxels a slab of the plain full solver takes at once: its temporaries
+# hold ~0.4 KB a voxel, 200 GiB for a whole 537M-voxel vote
+_SLAB_VOXELS = 1 << 23
+
+
+def _by_slabs(fn, vote_cm):
+    """``fn`` of a channel-major vote tensor, applied to slabs of its z
+    planes and joined along z (every voxel's result is its own)."""
+    step = max(1, _SLAB_VOXELS // (vote_cm.shape[-2] * vote_cm.shape[-1]))
+    return torch.cat([fn(vote_cm[:, z:z + step])
+                      for z in range(0, vote_cm.shape[1], step)], dim=-3)
+
+
 def _vote_score_plain(vote_cm, order, curve):
     """The stick|linear score of a channel-major vote tensor through the
-    full solver (``diagonalize_flat_sym3``)."""
-    vals = sym3.diagonalize_flat_sym3(vote_cm.movedim(0, -1),
-                                      order=order)[..., :3]
-    return (FH.score_tensor_linear if curve
-            else FH.score_tensor_planar)(vals)
+    full solver (``diagonalize_flat_sym3``), a slab at a time."""
+    score = FH.score_tensor_linear if curve else FH.score_tensor_planar
+    return _by_slabs(lambda v: score(sym3.diagonalize_flat_sym3(
+        v.movedim(0, -1), order=order)[..., :3]), vote_cm)
 
 
 def _cluster_image(res, s: Settings) -> np.ndarray:
@@ -1242,7 +1266,6 @@ def run(argv, device="cuda", report: Optional[Report] = None,
         raise RuntimeError("visfd_tpu_torch: no CUDA device is visible; "
                            "filter_mrc runs its kernels on an NVIDIA GPU")
     s = S.parse_args(list(argv))
-    _check_settings(s)
     tv_types = (S.SURFACE_RIDGE, S.SURFACE_EDGE, S.CURVE)
     blob_tools = (S.BLOB_NONMAX_SUPPRESSION, S.BLOB_NONMAX_SUPERVISED_MULTI)
     if s.mesh_devices:

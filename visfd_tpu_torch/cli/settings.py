@@ -215,7 +215,7 @@ class Settings:
     max_distance_to_feature: float = 1.3
     save_intermediate_fname_base: str = ""
     load_intermediate_fname_base: str = ""
-    # extensions: mesh-sharded orbax phase checkpoints
+    # extensions: sharded phase checkpoints (io/checkpoint)
     save_progress_sharded: str = ""
     load_progress_sharded: str = ""
     # extension: shard the dense voxel stages over a (z, y) device
@@ -653,7 +653,8 @@ def parse_args(argv: List[str]) -> Settings:
             s.load_intermediate_fname_base = args[i + 1]; n = 1
         elif a == "-save-progress-sharded":
             # extension: persist the TV phase state (vote tensor +
-            # saliency + direction) as a mesh-sharded orbax checkpoint
+            # saliency + direction) as a sharded checkpoint directory
+            # (io/checkpoint: each rank writes its own blocks)
             need(1, "needs a directory name")
             s.save_progress_sharded = args[i + 1]; n = 1
         elif a == "-load-progress-sharded":

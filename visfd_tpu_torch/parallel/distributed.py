@@ -7,6 +7,8 @@ processes for free.  Here the (z, y) blocks of a ``parallel.mesh``
 grid are owned by the processes ("ranks") whose devices hold them, and
 what crosses ranks goes through the three helpers of this module:
 
+* ``barrier``: every rank waits for the others (the sharded checkpoint's
+  phases, ``io.checkpoint``);
 * ``allreduce_sum``: host counts and flags (int64, float64), summed;
 * ``allgather_arrays``: variable-length host arrays, in rank order;
 * ``exchange``: point-to-point sends and receives of tensors (the halo
@@ -176,6 +178,17 @@ def comm_device() -> torch.device:
     """Where the collectives' tensors live: the rank's card under NCCL,
     the host otherwise."""
     return _card if _backend == "nccl" else torch.device("cpu")
+
+
+def barrier() -> None:
+    """Wait until every rank has called it (nothing outside a cluster);
+    under NCCL on the rank's card.  It records no traffic."""
+    if not dist.is_initialized():
+        return
+    if _backend == "nccl":
+        dist.barrier(device_ids=[_card.index])
+    else:
+        dist.barrier()
 
 
 def allreduce_sum(values) -> np.ndarray:
