@@ -1,0 +1,8 @@
+"""100 less the union of the device operations' intervals (kernels,
+copies, memsets) over the traced window, in %."""
+
+
+def read(ctx):
+    if ctx.trace is None or ctx.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - ctx.trace.busy_s / ctx.trace.window_s)
