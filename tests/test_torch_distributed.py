@@ -479,12 +479,3 @@ def test_device_trace_writes_a_trace(tmp_path):
     events = json.load(open(prof.trace_path))["traceEvents"]
     assert any("matmul" in e.get("name", "") for e in events)
 
-
-def test_stage_timings_returns_every_stage():
-    from visfd_tpu_torch.utils.profiling import stage_timings
-    calls = []
-    out = stage_timings([("a", lambda: calls.append("a")),
-                         ("b", lambda: calls.append("b"))],
-                        warmup=1, iters=2)
-    assert sorted(out) == ["a", "b"] and all(v >= 0 for v in out.values())
-    assert calls == ["a"] * 3 + ["b"] * 3

@@ -41,7 +41,7 @@ from visfd_tpu_torch.ops import filters as F
 from visfd_tpu_torch.parallel import distributed as D
 from visfd_tpu_torch.parallel.blocks import iter_windows
 from visfd_tpu_torch.parallel.mesh import ShardedVolume
-from visfd_tpu_torch.utils.progress import span
+from visfd_tpu_torch.utils.progress import count_copy, span
 
 SORT_DECREASING = "decreasing"
 SORT_INCREASING = "increasing"
@@ -129,7 +129,8 @@ def _scale_candidates(prev, mid, next_, mask, report=None):
     extremum test AND the sign test (minima score < 0, maxima > 0,
     ``feature.hpp:318-341``), compacted per slab on the device.  A
     ``Report`` gets the spans "blob: extremum test", "blob: compaction
-    + copy" and "blob: candidate merge"."""
+    + copy" and "blob: candidate merge", and counts the copies to the
+    host."""
     found = ([], []), ([], [])
     multi = isinstance(mid, ShardedVolume) and mid.mesh.shape != (1, 1)
     spans = multi and mid.mesh.spans_processes
@@ -147,10 +148,13 @@ def _scale_candidates(prev, mid, next_, mask, report=None):
             for (crds, scores), sel in zip(found, sels):
                 idx = torch.nonzero(sel)
                 if len(idx):
-                    scores.append(c[sel].cpu().numpy())
+                    sc = c[sel]
+                    scores.append(sc.cpu().numpy())
+                    count_copy(report, sc, scores[-1])
                     idx[:, 0] += z0
                     idx[:, 1] += y0
                     crds.append(idx.cpu().numpy())
+                    count_copy(report, idx, crds[-1])
     out = []
     with span("blob: candidate merge", report):
         for crds, scores in found:

@@ -29,6 +29,7 @@ device with ``torch.as_tensor(data, device=...)``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import io as _io
 import os
@@ -293,13 +294,15 @@ def write_mrc(
     data: np.ndarray,
     header: Optional[MrcHeader] = None,
     voxel_width: Optional[Union[float, Tuple[float, float, float]]] = None,
+    report=None,
 ) -> None:
     """Write (Z, Y, X) data as a mode-2 (float32) MRC file.
 
     Like ``MrcSimple::Write`` the header's mode is forced to float and
     dmin/dmax/dmean are recomputed from the data. If ``header`` is None
     a fresh one is synthesized; ``voxel_width`` (physical units per
-    voxel) then sets cellA = width * nvoxels.
+    voxel) then sets cellA = width * nvoxels.  A ``Report`` gets the
+    span "mrc: header statistics" (the float64 copy, min, max, mean).
     """
     data = np.asarray(data, dtype=np.float32)
     if data.ndim != 3:
@@ -314,10 +317,16 @@ def write_mrc(
         if np.isscalar(voxel_width):
             voxel_width = (voxel_width,) * 3
         h.cellA = tuple(w * n for w, n in zip(voxel_width, (nx, ny, nz)))
-    d64 = np.asarray(data, dtype=np.float64)
-    h.dmin = float(data.min()) if data.size else 0.0
-    h.dmax = float(data.max()) if data.size else -1.0
-    h.dmean = float(d64.mean()) if data.size else 0.0
+    stats = contextlib.nullcontext()
+    if report is not None:
+        # imported here: the host tools write MRC files without torch
+        from visfd_tpu_torch.utils.progress import span
+        stats = span("mrc: header statistics", report)
+    with stats:
+        d64 = np.asarray(data, dtype=np.float64)
+        h.dmin = float(data.min()) if data.size else 0.0
+        h.dmax = float(data.max()) if data.size else -1.0
+        h.dmean = float(d64.mean()) if data.size else 0.0
     h.nsymbt = 0
 
     # the samples straight from the array's memory, not through copies

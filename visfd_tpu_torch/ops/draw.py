@@ -24,6 +24,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from visfd_tpu_torch.utils.progress import count_copy
+
 # (sphere, voxel) pairs listed at a time by draw_spheres
 PAIRS_PER_CHUNK = 2 ** 25
 
@@ -146,6 +148,7 @@ def draw_spheres(
     background_normalize: bool = False,
     foreground_normalize: bool = False,
     device=None,
+    report=None,
 ) -> torch.Tensor:
     """Render spheres/shells over an (optional) background image
     (``draw.hpp:235-465``) as a (Z, Y, X) float32 tensor on ``device``
@@ -153,7 +156,9 @@ def draw_spheres(
     voxels c_i + j of the cube |j| <= ceil(d_i / 2 - 0.5) with
     (d_i / 2 - shell_i)^2 <= |j|^2 <= (d_i / 2)^2 (the inner bound only
     when both terms are positive), c_i truncated toward zero, inside the
-    volume and the mask; where spheres overlap the later one wins."""
+    volume and the mask; where spheres overlap the later one wins.  A
+    ``Report`` counts the background's and the mask's copies to the
+    device."""
     nz, ny, nx = dest_shape_zyx
     if device is None:
         device = (background.device if isinstance(background, torch.Tensor)
@@ -170,11 +175,14 @@ def draw_spheres(
 
     def on_device(a):
         if isinstance(a, torch.Tensor):
-            return a.to(device)
-        # only read (the array may be a read-only file buffer)
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore", UserWarning)
-            return torch.as_tensor(np.asarray(a)).to(device)
+            t = a.to(device)
+        else:
+            # only read (the array may be a read-only file buffer)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                t = torch.as_tensor(np.asarray(a)).to(device)
+        count_copy(report, a, t)
+        return t
 
     valid = None if mask is None else (on_device(mask) != 0).reshape(-1)
     if background is None:

@@ -21,15 +21,18 @@ import torch
 
 from visfd_tpu_torch.parallel import distributed as D
 from visfd_tpu_torch.parallel.mesh import ShardedVolume
+from visfd_tpu_torch.utils.progress import count_copy
 
 
-def to_host_np(vol, dtype=None) -> Optional[np.ndarray]:
+def to_host_np(vol, dtype=None, report=None) -> Optional[np.ndarray]:
     """A tensor or a ShardedVolume as one numpy array on the host
-    (``None`` passes through)."""
+    (``None`` passes through); a ``Report`` counts the copies (each z
+    slab of a ShardedVolume)."""
     if vol is None:
         return None
     if not isinstance(vol, ShardedVolume):
         out = vol.detach().cpu().numpy()
+        count_copy(report, vol, out)
         return out if dtype is None else out.astype(dtype, copy=False)
     if vol.halo != (0, 0):
         raise ValueError("to_host_np: the volume still carries halos")
@@ -43,7 +46,9 @@ def to_host_np(vol, dtype=None) -> Optional[np.ndarray]:
         dev = parts[0].device
         slab = torch.cat([b.detach().to(dev, non_blocking=True)
                           for b in parts], dim=vol.lead + 1)
-        out[pre + (slice(iz * bz, (iz + 1) * bz),)].copy_(slab)
+        dst = out[pre + (slice(iz * bz, (iz + 1) * bz),)]
+        dst.copy_(slab)
+        count_copy(report, slab, dst)
     out = out.numpy()
     return out if dtype is None else out.astype(dtype, copy=False)
 

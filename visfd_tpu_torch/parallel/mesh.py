@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from visfd_tpu_torch.parallel import distributed as D
+from visfd_tpu_torch.utils.progress import count_copy
 
 AXIS_NAMES = ("z", "y")
 
@@ -201,11 +202,12 @@ def divides(shape, mesh: Mesh, lead: int = 0) -> bool:
     return shape[lead] % nz_m == 0 and shape[lead + 1] % ny_m == 0
 
 
-def shard(x, mesh: Mesh, lead: int = 0) -> ShardedVolume:
+def shard(x, mesh: Mesh, lead: int = 0, report=None) -> ShardedVolume:
     """Split a (C..., Z, Y, X) numpy array or tensor into even (z, y)
     blocks, each a fresh float32 copy on its mesh device (the
-    counterpart of ``device_put`` with ``grid_sharding``).  Raises if
-    the mesh does not divide Z and Y."""
+    counterpart of ``device_put`` with ``grid_sharding``); a ``Report``
+    counts each z slab's copy to the device.  Raises if the mesh does
+    not divide Z and Y."""
     if not divides(x.shape, mesh, lead):
         raise ValueError(f"shard: {tuple(x.shape)} is not divisible by the "
                          f"{mesh.shape} device grid")
@@ -223,10 +225,12 @@ def shard(x, mesh: Mesh, lead: int = 0) -> ShardedVolume:
             # one host-to-device copy of the z slab (contiguous for a
             # volume), split into its y blocks on the device; the host
             # array is only read (it may be a read-only file buffer)
+            host = slab
             with warnings.catch_warnings():
                 warnings.simplefilter("ignore", UserWarning)
                 slab = torch.from_numpy(np.ascontiguousarray(slab))
             slab = slab.to(row[local[0]])
+            count_copy(report, host, slab)
         blocks.append([slab[pre + (slice(None),
                                    slice(iy * by, (iy + 1) * by))].to(
             dev, torch.float32, copy=True).contiguous()

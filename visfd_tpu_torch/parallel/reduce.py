@@ -8,8 +8,9 @@ sort the in-mask saliencies descending and take entry
 * One device: a sort of the in-mask values gives that entry bit for
   bit.  (``torch.sort`` and not ``torch.kthvalue``: on the card
   kthvalue selects a single slice with one thread block: 486 ms against
-  3.5 ms for the sort, 67M voxels, on an H100 80GB HBM3 at 700 W,
-  ``profile_main_path.py``.)
+  3.5 ms for the sort, 67M voxels, on an H100 80GB HBM3 at 700 W; the
+  sort's launches show in a traced run of the membrane cell,
+  ``portbench/run.py --trace 1``.)
 * A ``ShardedVolume``: the exact k-th largest by 4 rounds of a 256-bin
   radix histogram over an order-preserving 32-bit key, as the JAX
   package does with ``psum``: each block counts its own keys

@@ -2,15 +2,15 @@
 
 Port of ``visfd_tpu/utils/profiling.py``: a device trace of a block of
 work (``torch.profiler``, where the JAX package takes a
-``jax.profiler`` trace) and best-of-N stage timings.
+``jax.profiler`` trace).  Inside it every stage and span of a
+``utils/progress.Report`` is an annotation above the kernels and copies
+it queued.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 
@@ -42,29 +42,3 @@ def device_trace(log_dir: str):
         prof.trace_path = os.path.join(log_dir, f"trace_{os.getpid()}.json")
         prof.export_chrome_trace(prof.trace_path)
 
-
-def stage_timings(
-    stages: Sequence[Tuple[str, Callable[[], object]]],
-    warmup: int = 1,
-    iters: int = 3,
-) -> Dict[str, float]:
-    """Best-of-N wall seconds of each (name, thunk) stage, the card
-    synchronised before each clock stops; the warm-up runs absorb the
-    kernels' first-use builds."""
-    def sync():
-        if torch.cuda.is_initialized():
-            torch.cuda.synchronize()
-
-    out: Dict[str, float] = {}
-    for name, thunk in stages:
-        for _ in range(warmup):
-            thunk()
-        sync()
-        best = float("inf")
-        for _ in range(iters):
-            t0 = time.perf_counter()
-            thunk()
-            sync()
-            best = min(best, time.perf_counter() - t0)
-        out[name] = best
-    return out

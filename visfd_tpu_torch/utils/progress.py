@@ -1,12 +1,18 @@
-"""Per-stage timing and execution-path telemetry.
+"""Per-stage timing, execution-path telemetry and copy counters.
 
 Port of ``visfd_tpu/utils/progress.py``.  A ``Report`` is the progress
 sink of one run (the reference's ``ostream *pReportProgress``): it
 keeps each stage's wall time, which implementation served each stage
-and the run's counts (candidates, seeds, clusters of ``-connect``), and
-prints one grep-able summary line of the paths.  A stage
-synchronises the card before it stops its clock, so the time covers the
-kernels the stage queued.
+and the run's counts (candidates, seeds, clusters of ``-connect``, the
+bytes copied between host and device), and prints one grep-able summary
+line of the paths.  A stage synchronises the card before it stops its
+clock, so the time covers the kernels the stage queued.
+
+While a ``torch.profiler`` records, every stage and span is also a
+``record_function`` annotation of its name, so the trace shows each one
+on the device trace's own clock, above the kernels and copies it queued
+and inside the stage that encloses it.  Without a profiler no
+annotation is opened (one flag read a stage or span).
 """
 
 from __future__ import annotations
@@ -16,6 +22,11 @@ import time
 from typing import Optional, TextIO
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+# the counters of host<->device copies (``count_copy``)
+TO_DEVICE = "bytes to the device"
+TO_HOST = "bytes to the host"
 
 
 class Report:
@@ -24,7 +35,7 @@ class Report:
 
     def __init__(self, stream: Optional[TextIO] = None):
         self.stream = stream
-        self.timings = {}  # stage name -> seconds (last run)
+        self.timings = {}  # stage or span name -> seconds, summed
         self.paths = {}    # stage name -> implementation that served it
         self.counts = {}   # e.g. "connect candidates" -> voxels
 
@@ -47,24 +58,69 @@ class Report:
         self.counts[name] = int(n)
         self.line(f"{name}: {int(n)}")
 
+    def add_count(self, name: str, n: int) -> None:
+        """Add ``n`` to the count ``name``, silently (a counter summed
+        over the run, e.g. the bytes copied to the device)."""
+        self.counts[name] = self.counts.get(name, 0) + int(n)
+
     def format_paths(self) -> str:
         """e.g. ``stage paths: hessian_eigen=cuda tv=cuda-sparse``."""
         body = " ".join(f"{k}={v}" for k, v in self.paths.items())
         return f"stage paths: {body}" if body else "stage paths: (none)"
 
+    def format_copies(self) -> str:
+        """e.g. ``host<->device bytes: 1207959552 to the device,
+        268435456 to the host``."""
+        return (f"host<->device bytes: {self.counts.get(TO_DEVICE, 0)} to "
+                f"the device, {self.counts.get(TO_HOST, 0)} to the host")
+
+
+def _on_host(a) -> bool:
+    return not isinstance(a, torch.Tensor) or a.device.type == "cpu"
+
+
+def count_copy(report, src, dst) -> None:
+    """Add the bytes of the copy of ``src`` into ``dst`` (tensors, or
+    numpy arrays, which are on the host) to ``report``'s count
+    ``TO_DEVICE`` or ``TO_HOST``: ``dst``'s bytes where exactly one of
+    the two is on the host, nothing otherwise, nor for a ``report`` that
+    is not a ``Report``."""
+    if isinstance(report, Report) and _on_host(src) != _on_host(dst):
+        report.add_count(TO_DEVICE if _on_host(src) else TO_HOST, dst.nbytes)
+
+
+@contextlib.contextmanager
+def _timed(name: str, report: Report):
+    """The block inside ``record_function(name)`` while a profiler
+    records, the card synchronised at its end, its wall seconds added
+    to ``report.timings[name]``."""
+    ann = (torch.profiler.record_function(name)
+           if _autograd_profiler._is_profiler_enabled
+           else contextlib.nullcontext())
+    t0 = time.perf_counter()
+    try:
+        with ann:
+            try:
+                yield
+            finally:
+                if torch.cuda.is_initialized():
+                    torch.cuda.synchronize()
+    finally:
+        report.timings[name] = (report.timings.get(name, 0.0)
+                                + time.perf_counter() - t0)
+
 
 @contextlib.contextmanager
 def stage(name: str, report: Report):
-    """Time a pipeline stage into ``report.timings``."""
+    """Time a pipeline stage into ``report.timings`` (a stage that
+    repeats adds up) and print its start and its seconds."""
     report.line(f"---- {name} ----")
-    t0 = time.perf_counter()
+    before = report.timings.get(name, 0.0)
     try:
-        yield report
+        with _timed(name, report):
+            yield report
     finally:
-        if torch.cuda.is_initialized():
-            torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        report.timings[name] = dt
+        dt = report.timings[name] - before
         report.line(f"---- {name}: {dt:.3f}s ----")
 
 
@@ -76,11 +132,5 @@ def span(name: str, report):
     if not isinstance(report, Report):
         yield
         return
-    t0 = time.perf_counter()
-    try:
+    with _timed(name, report):
         yield
-    finally:
-        if torch.cuda.is_initialized():
-            torch.cuda.synchronize()
-        report.timings[name] = (report.timings.get(name, 0.0)
-                                + time.perf_counter() - t0)
