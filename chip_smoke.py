@@ -113,11 +113,16 @@ Phases:
    ladder's halfwidths 6-11 at 1024 x 1024 x 256; the dense-correlation
    kernel at -ggauss's and -dogg's kernels (7^3, 15^3) on (256, 512, 512)
    beside ``conv3d``; each per-axis and dense time as a share of its
-   bound, beside the time of the design before (``BEFORE_MS``); (8b)
+   bound, beside the time of the design before (``BEFORE_MS``); (8g)
+   the blob extremum kernel on three LoG scales of 8b's phantom at
+   1024 x 1024 x 256, with its mask and without one: its codes and
+   ``_scale_candidates``' lists equal to the twin's, exactly, its time
+   beside the twin's and its bound; (8b)
    ``filter_mrc -w 19.6 -mask M -blob minima B 160 280 1.01`` (the
    reference's ladder, 58 scales)
    on a seeded 1024 x 1024 x 256 phantom of 1500 dark spheres: the
-   ``blur3`` launches against the ladder's 4 a scale, the spans (read,
+   ``blur3`` launches against the ladder's 4 a scale, the extremum
+   kernel's one a mid scale, the spans (read,
    LoG ladder, extremum test, compaction, NMS, drawing, write), wall,
    peak card memory, host peak RSS, and the share of the phantom's
    centres found within 1 voxel; (8c) the blob lists of a 64 x 128 x 128
@@ -128,7 +133,7 @@ Phases:
    ``-ggauss``, ``-dog``, ``-dogg``, ``-log``, ``-fluct``, ``-median 2``,
    ``-erode 2`` and ``-open 2`` at 512 x 512 x 256, each card against
    CPU on a crop; (8f) ``-blob … -mesh 4`` on one card against 8b, bit
-   for bit;
+   for bit, the extremum kernel once a slab of a block a mid scale;
 9. the experimental handlers, the 2-D filters and the nine tools: (9a)
    the dense kernel's (1, 21, 21) mode (``-doggxy 2 4 2``'s 2-D pass) at
    1024 x 1024 x 512 and its 31^3 mode (``-template-gauss 3 6``'s
@@ -213,7 +218,8 @@ launches in one run: the vote score with its vector has one entry for
 one device, from 6c, and one per block, from 7d's ``-mesh`` run; the
 blur's per-axis mode counts 8e's ``-gauss 21`` run, the dense kernel
 8e's ``-ggauss`` run, its (1, Ky, Kx) mode 9a's ``-doggxy`` run and its
-31^3 mode 9a's ``-template-gauss`` run; ``cluster_launches``: each
+31^3 mode 9a's ``-template-gauss`` run, the blob extremum kernel 8b's
+run; ``cluster_launches``: each
 rank's launches in 10a and 12a), before it the card's name and power
 limit and phase 13's numbers (``{"checkpoint": ...}``), and the last
 line ``{"ok": true, "device": {...}}``.  Each phase prints its
@@ -279,6 +285,7 @@ EIGVEC_OPS = 43                 # the principal eigenvector
 SCORE_OPS = {"planar": 4, "linear": 3, "stick": 1, "vals": 0}
 TV_OPS_PER_TAP = 33             # per non-zero source and tap (e = 4)
 TV_DEN_OPS_PER_TAP = 2
+BLOB_EXTREMUM_OPS = 48          # the 80-neighbour test and the sign test
 
 
 def bound_ms(nbytes, nops):
@@ -2548,6 +2555,10 @@ KERNELS.update({
     # the dense correlation (the JAX package's is XLA's conv, no Pallas)
     "conv3d_dense": ("visfd_tpu_torch/csrc/conv3d.cu",
                      "visfd_tpu/ops/conv.py:164"),
+    # the blob ladder's extremum test (the JAX package's is XLA's
+    # elementwise minima and maxima, no Pallas)
+    "blob_extremum": ("visfd_tpu_torch/csrc/blob_extremum.cu",
+                      "visfd_tpu/features/blob.py:70"),
 })
 
 
@@ -2763,21 +2774,45 @@ def _blob_diameters():
 def _blob_run(chk, card, tmp, fin, fmask, stem, dev, mesh=None):
     """``filter_mrc -w 19.6 -mask M -in T -out O -blob minima B.txt
     BLOB_LADDER`` (with -mesh 4 on ``mesh``): (exit code, wall, Report,
-    blur3 launches, peak card GiB, host peak RSS GiB)."""
+    the launches of ``_blob_wrappers``, peak card GiB, host peak RSS
+    GiB)."""
     import torch
-    from visfd_tpu_torch.ops import blur_cuda
     argv = (f"-w {BLOB_W} -mask {fmask} -in {fin} -out {stem}.mrc -blob "
             f"minima {stem}.txt {BLOB_LADDER}").split()
     if mesh is not None:
         argv += ["-mesh", str(MESH_DEVICES)]
     if dev != "cpu":
         torch.cuda.reset_peak_memory_stats()
-    blur_cuda.blur3.launches = 0
+    wrappers = _blob_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
     with _PeakRss() as rss:
         rc, wall, rep = _run_cli(argv, dev, mesh)
-    n = blur_cuda.blur3.launches
+    n = {k: w.launches for k, w in wrappers.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30 if dev != "cpu" else 0.0
     return rc, wall, rep, n, peak, rss.gib
+
+
+def _blob_wrappers():
+    """The kernel wrappers a -blob run launches, by kernel name."""
+    from visfd_tpu_torch.features import blob as TB
+    from visfd_tpu_torch.ops import blur_cuda
+    return {"blur3": blur_cuda.blur3,
+            "blob_extremum": TB._extremum_codes_cuda}
+
+
+def _blob_extremum_launches(blocks=None):
+    """The extremum kernel's launches of -blob BLOB_LADDER at BLOB_SHAPE:
+    one a mid scale on one device; over ``blocks`` blocks of the (2, 2)
+    grid, one a z slab of a block a mid scale (``iter_windows``)."""
+    from visfd_tpu_torch.features import blob as TB
+    mid = len(_blob_diameters()) - 2
+    if blocks is None:
+        return mid
+    bz, by, nx = (-(-BLOB_SHAPE[0] // 2), -(-BLOB_SHAPE[1] // 2),
+                  BLOB_SHAPE[2])
+    planes = max(1, min(bz, TB.SLAB_VOXELS // (by * nx)))
+    return mid * blocks * -(-bz // planes)
 
 
 def _read_blobs(path):
@@ -2804,6 +2839,87 @@ def _found_share(blobs, centres, mask):
     found = torch.tensor(blobs.crds[:, ::-1].copy())
     d = torch.cdist(torch.tensor(inner), found).min(1).values
     return float((d <= 1.0).double().mean()), len(inner)
+
+
+def phase_blob_extremum(chk, card, dev="cuda"):
+    """8g: the blob extremum kernel (``features/blob._extremum_codes_cuda``)
+    on the three LoG scales around the ladder's middle mid scale of 8b's
+    phantom at BLOB_SHAPE, with the phantom's mask (8b's launches) and
+    without one: its codes equal to the twin's (``_extremum_masks`` and
+    the sign test, run on the card: comparisons only, so exact on any
+    device), ``_scale_candidates``' lists equal to the twin's codes'
+    voxels and scores in raster order, one launch and no twin slab in
+    its Report; the kernel's and the twin's CUDA-event times and the
+    kernel's bound (13 B a voxel with the mask, 12 without).  Returns
+    the kernel's stats (its time and bound with the mask)."""
+    import torch
+    from visfd_tpu_torch.features import blob as TB
+    from visfd_tpu_torch.utils.phantom import blob_phantom
+    from visfd_tpu_torch.utils.progress import Report
+
+    sig = [d / (2 * np.sqrt(3.0)) for d in _blob_diameters()]
+    k = len(sig) // 2
+    tr = float(np.sqrt(-2.0 * np.log(0.03)))
+    print(f"== phase 8g: the blob extremum kernel against its twin on the "
+          f"LoG scales {k - 1}-{k + 1} (sigma {sig[k]:.3f}) of 8b's phantom, "
+          f"{BLOB_SHAPE} [{card}]", flush=True)
+    vol, mask, _, _ = blob_phantom(BLOB_SHAPE, seed=SEED + 81,
+                                   n_blobs=BLOB_COUNT, device=dev)
+    p, m, n = (TB.log_filter_for_scale(vol, (s,) * 3, 0.02, tr, mask)
+               for s in sig[k - 1:k + 2])
+    del vol
+    nvox = m.numel()
+    stats = {}
+    for label, kw in (("mask", mask), ("no mask", None)):
+        valid = None if kw is None else (kw != 0).view(torch.uint8)
+        got = TB._extremum_codes_cuda(p, m, n, valid)
+        (lo, hi), pms = timed_ms(lambda: TB._extremum_masks(p, m, n, kw))
+        want = ((lo & (m < 0)).to(torch.uint8)
+                | ((hi & (m > 0)).to(torch.uint8) << 1))
+        del lo, hi
+        nd = int((got != want).sum())
+        err = Err(float((got.int() - want.int()).abs().max()))
+        kinds = [int((want == c).sum()) for c in (1, 2)]
+        chk.check(nd == 0 and min(kinds) > 0,
+                  f"blob_extremum ({label}) codes == the twin's at "
+                  f"{BLOB_SHAPE}: {nd} of {nvox} differ; {kinds[0]} minima, "
+                  f"{kinds[1]} maxima")
+        del got
+        rep = Report(None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        found = TB._scale_candidates(p, m, n, kw, rep)
+        sms = 1e3 * (time.perf_counter() - t0)
+        same = all(
+            np.array_equal(zyx, torch.nonzero(want == c).cpu().numpy())
+            and np.array_equal(sc, m[want == c].cpu().numpy())
+            for (zyx, sc), c in zip(found, (1, 2)))
+        counts = {c: rep.counts.get(c, 0)
+                  for c in (TB.KERNEL_LAUNCHES, TB.TWIN_SLABS)}
+        chk.check(same and counts == {TB.KERNEL_LAUNCHES: 1,
+                                      TB.TWIN_SLABS: 0},
+                  f"_scale_candidates ({label}) == the twin's candidates and "
+                  f"scores in raster order: {same}; counts {counts}")
+        del want
+        ms = cuda_ms(lambda: TB._extremum_codes_cuda(p, m, n, valid), 10)
+        b = bound_ms((12 + (valid is not None)) * nvox,
+                     BLOB_EXTREMUM_OPS * nvox)
+        spans = ", ".join(f"{name} {1e3 * t:.3f} ms"
+                          for name, t in rep.timings.items())
+        print(f"  blob_extremum ({label}): kernel {ms:.3f} ms, twin "
+              f"{pms:.3f} ms, bound {b[0]:.3f} ms ({b[1]}), "
+              f"{100 * b[0] / ms:.1f}% of it; _scale_candidates "
+              f"{sms:.3f} ms ({spans}) [{card}]", flush=True)
+        if kw is not None:
+            stats["blob_extremum"] = {"err": err, "ms": ms, "plain_ms": pms,
+                                      "bound_ms": b[0], "bound_by": b[1],
+                                      "library_ms": None}
+        else:
+            stats["blob_extremum"]["err"] = worst(
+                stats["blob_extremum"]["err"], err)
+    del p, m, n, mask
+    torch.cuda.empty_cache()
+    return stats
 
 
 def phase_blob(chk, card, tmp, dev="cuda"):
@@ -2836,8 +2952,9 @@ def phase_blob(chk, card, tmp, dev="cuda"):
     mrc.write_mrc(fin, vol_np)
     mrc.write_mrc(fmask, mask_np)
     stem = os.path.join(tmp, "blob_one")
-    rc, wall, rep, n_blur, peak, rss = _blob_run(chk, card, tmp, fin, fmask,
-                                                 stem, dev)
+    rc, wall, rep, launches, peak, rss = _blob_run(chk, card, tmp, fin,
+                                                   fmask, stem, dev)
+    n_blur = launches["blur3"]
     blobs = _read_blobs(stem + ".txt")
     out = mrc.read_mrc(stem + ".mrc").data
     chk.check(rc == 0 and out.shape == BLOB_SHAPE
@@ -2847,6 +2964,13 @@ def phase_blob(chk, card, tmp, dev="cuda"):
     chk.check(n_blur == 4 * len(diams),
               f"blur3 launches {n_blur} == 4 per scale x {len(diams)} scales "
               f"(two masked Gaussians: numerator and mask)")
+    n_ext = _blob_extremum_launches()
+    counts = {k: rep.counts.get(k, 0)
+              for k in (TB.KERNEL_LAUNCHES, TB.TWIN_SLABS)}
+    chk.check(launches["blob_extremum"] == n_ext
+              and counts == {TB.KERNEL_LAUNCHES: n_ext, TB.TWIN_SLABS: 0},
+              f"blob_extremum launches {launches['blob_extremum']} == one a "
+              f"mid scale ({n_ext}); the Report counts {counts}")
     share, n_in = _found_share(blobs, centres, mask_np)
     chk.check(share >= 0.95, f"phantom centres (of {n_in} inside the mask) "
                              f"with a blob within 1 voxel: {share:.4f}")
@@ -2861,7 +2985,8 @@ def phase_blob(chk, card, tmp, dev="cuda"):
           f"{t['draw spheres']:.3f} s; copy to the host "
           f"{t['copy the result to the host']:.3f} s; write "
           f"{t['write the tomogram']:.3f} s; {n_sc} scales, {n_blur} blur3 "
-          f"launches; peak card memory {peak:.2f} GiB; host peak RSS "
+          f"launches, {launches['blob_extremum']} blob_extremum launches; "
+          f"peak card memory {peak:.2f} GiB; host peak RSS "
           f"{rss:.2f} GiB [{card}]", flush=True)
     del out
 
@@ -2902,7 +3027,7 @@ def phase_blob(chk, card, tmp, dev="cuda"):
     chk.check(ok, f"crop lists card == CPU: {len(ia)} blobs in both, "
                   f"{flagged} near-ties (margin < 1e-4) in one only, scores "
                   f"to rtol 2e-5 (6 digits in the files)")
-    return fin, fmask, stem, centres, n_blur, hws
+    return fin, fmask, stem, centres, launches, hws
 
 
 def phase_blob_tools(chk, card, tmp, blob, dev="cuda"):
@@ -3021,14 +3146,19 @@ def phase_blob_mesh(chk, card, tmp, blob, dev="cuda"):
           f"{'x'.join(map(str, BLOB_SHAPE[::-1]))} against 8b [{card}]",
           flush=True)
     mstem = os.path.join(tmp, "blob_mesh")
-    rc, wall, rep, n_blur, peak, rss = _blob_run(chk, card, tmp, fin, fmask,
-                                                 mstem, dev, mesh=mesh_devs)
+    rc, wall, rep, launches, peak, rss = _blob_run(
+        chk, card, tmp, fin, fmask, mstem, dev, mesh=mesh_devs)
     same = open(mstem + ".txt").read() == open(stem + ".txt").read()
     chk.check(rc == 0 and same, f"-blob -mesh {MESH_DEVICES}: exit {rc}, "
                                 f"list == one device's: {same}")
+    n_ext = _blob_extremum_launches(MESH_DEVICES)
+    chk.check(launches["blob_extremum"] == n_ext,
+              f"-blob -mesh {MESH_DEVICES}: blob_extremum launches "
+              f"{launches['blob_extremum']} == one a slab of a block a mid "
+              f"scale ({n_ext})")
     _same_files(chk, f"-blob -mesh {MESH_DEVICES} image == one device's",
                 mstem + ".mrc", stem + ".mrc")
-    print(f"  wall {wall:.3f} s; {_spans(rep)}; blur3 launches {n_blur}; "
+    print(f"  wall {wall:.3f} s; {_spans(rep)}; launches {launches}; "
           f"peak card memory {peak:.2f} GiB; host peak RSS {rss:.2f} GiB "
           f"[{card}]", flush=True)
     for f in (mstem + ".txt", mstem + ".mrc"):
@@ -3560,6 +3690,7 @@ def cluster_rank(spec_path: str) -> int:
     from datetime import timedelta
     import torch
     from visfd_tpu_torch.cli import filter_mrc as TFM
+    from visfd_tpu_torch.features import blob as TB
     from visfd_tpu_torch.io import checkpoint as CK
     from visfd_tpu_torch.ops import blur_cuda, dense_cuda, eigen_cuda as EC
     from visfd_tpu_torch.ops import tv_cuda
@@ -3576,7 +3707,8 @@ def cluster_rank(spec_path: str) -> int:
                 "sym3_score": EC.sym3_score,
                 "hessian_principal": EC.hessian_principal,
                 "tv_votes": tv_cuda.tv_votes,
-                "conv3d_dense": dense_cuda.conv3d_dense}
+                "conv3d_dense": dense_cuda.conv3d_dense,
+                "blob_extremum": TB._extremum_codes_cuda}
     writes = []
 
     def spy(fn):
@@ -3741,7 +3873,8 @@ def _tv_launches(blocks):
     every per-shard kernel once a block, no single-device one."""
     return {"blur3": blocks, "hessian_principal_block": blocks,
             "tv_votes_prepadded": blocks, "sym3_score": blocks,
-            "hessian_principal": 0, "tv_votes": 0, "conv3d_dense": 0}
+            "hessian_principal": 0, "tv_votes": 0, "conv3d_dense": 0,
+            "blob_extremum": 0}
 
 
 def _cluster_checks(chk, label, recs, want_writes, want_launches):
@@ -3978,7 +4111,7 @@ def phase_cluster_handlers(chk, card, tmp, blob, dev="cuda"):
     import torch
     from visfd_tpu_torch.io import mrc
 
-    fin, fmask, stem, _, n_blur, _ = blob
+    fin, fmask, stem, _, one_launches, _ = blob
     blocks = [f"{dev}:0" if dev == "cuda" else dev] * RANK_BLOCKS
     torch.cuda.empty_cache()
     free, total = (torch.cuda.mem_get_info() if dev == "cuda"
@@ -4074,7 +4207,8 @@ def phase_cluster_handlers(chk, card, tmp, blob, dev="cuda"):
                 _print_rank(lab, r, rr[r], card)
             want = _tv_launches(0)
             if i == 0:
-                want["blur3"] = n_blur * RANK_BLOCKS
+                want["blur3"] = one_launches["blur3"] * RANK_BLOCKS
+                want["blob_extremum"] = _blob_extremum_launches(RANK_BLOCKS)
                 one = [stem + ".txt", stem + ".mrc"]
             _cluster_checks(chk, lab, rr, two, want)
             texts = [(a, b) for a, b in zip(two, one)
@@ -4444,6 +4578,7 @@ def main() -> int:
             mesh_v = chk.run(phase_mesh_segment, chk, card, tmp, thr[0])
         chk.run(phase_intensity, chk, card, tmp)
         filt_stats = chk.run(phase_filter_kernels, chk, card)
+        ext_stats = chk.run(phase_blob_extremum, chk, card)
         blob = chk.run(phase_blob, chk, card, tmp)
         if blob is not None:
             chk.run(phase_blob_tools, chk, card, tmp, blob)
@@ -4481,15 +4616,18 @@ def main() -> int:
     # runs for the vote score with its vector: one device (6c) and, per
     # block, -mesh (7d); 8e's -gauss 21 (halfwidth 55) for the blur's
     # per-axis mode and its -ggauss 2 for the dense kernel; 9a's -doggxy
-    # and -template-gauss runs for the dense kernel's 2-D and 31^3 modes
+    # and -template-gauss runs for the dense kernel's 2-D and 31^3 modes;
+    # 8b's -blob for the blob extremum kernel
     launches = {**launches, **exp[0],
+                "blob_extremum": blob[4]["blob_extremum"],
                 **{k: mesh_launches[k] for k in ("hessian_principal_block",
                                                  "tv_votes_prepadded")},
                 "sym3_score+v": connect[1]["sym3_score"],
                 "sym3_score_sharded+v": mesh_v, **filt_launches}
     stats = {**stats, **mesh_stats, **mesh_v_stats,
              "blur3_axis": filt_stats["blur3_axis"],
-             "conv3d_dense": filt_stats["conv3d_dense"], **exp_stats}
+             "conv3d_dense": filt_stats["conv3d_dense"], **exp_stats,
+             **ext_stats}
     stats["blur3"]["err"] = worst(stats["blur3"]["err"],
                                   filt_stats["blur3"]["err"])
     errs = [small, main_errs, mesh_small]

@@ -34,6 +34,7 @@ from visfd_tpu_torch.features import supervised as TSUP
 from visfd_tpu_torch.ops import draw as TD
 from visfd_tpu_torch.parallel.mesh import make_mesh
 from visfd_tpu_torch.utils.phantom import blob_phantom
+from visfd_tpu_torch.utils.progress import Report
 
 MARGIN = 1e-4
 
@@ -143,6 +144,43 @@ def test_extremum_masks_slabs_equal_one_pass(monkeypatch):
 
 
 # --- the ladder and NMS -------------------------------------------------------
+
+@pytest.mark.parametrize("slab_planes", [None, 2])
+def test_scale_candidates_on_cpu_take_the_twin(monkeypatch, slab_planes):
+    """CPU tensors take the plain twin slab by slab (the Report counts
+    its slabs and no kernel launch; the kernel's wrapper refuses CPU
+    tensors), and the candidates are the twin's masks AND the sign test
+    in raster order, scored with the mid scale's values."""
+    p, m, n, mask = _planted(4)
+    args = [torch.tensor(a) for a in (p, m, n, mask)]
+    if slab_planes:
+        monkeypatch.setattr(TB, "SLAB_VOXELS", slab_planes * 14 * 17)
+    launches = TB._extremum_codes_cuda.launches
+    rep = Report(None)
+    got = TB._scale_candidates(*args, rep)
+    assert rep.counts[TB.TWIN_SLABS] == -(-11 // (slab_planes or 11))
+    assert TB.KERNEL_LAUNCHES not in rep.counts
+    assert TB._extremum_codes_cuda.launches == launches
+    with pytest.raises(ValueError, match="CUDA"):
+        TB._extremum_codes_cuda(*args[:3], None)
+    lo, hi = TB._extremum_masks(*args)
+    for (zyx, sc), sel in zip(got, (lo & (args[1] < 0), hi & (args[1] > 0))):
+        want = torch.nonzero(sel).numpy()
+        assert len(want)
+        np.testing.assert_array_equal(zyx, want)
+        np.testing.assert_array_equal(sc, m[tuple(want.T)])
+
+
+def test_blob_dog_records_the_extremum_counts():
+    """blob_dog's Report holds the launch and twin-slab counts of its mid
+    scales (on the CPU: every scale the twin, no launch)."""
+    x, mask, _ = _phantom(seed=12, shape=(20, 24, 28))
+    rep = Report(None)
+    sig = [1.5, 1.8, 2.2, 2.6]
+    TB.blob_dog(torch.tensor(x), sig, mask=torch.tensor(mask), report=rep)
+    assert rep.counts[TB.TWIN_SLABS] == len(sig) - 2
+    assert TB.KERNEL_LAUNCHES not in rep.counts
+
 
 def _three_spheres():
     """tests/test_blob.py's three bright Gaussian blobs of diameter ~8."""

@@ -21,6 +21,7 @@ import torch
 
 from visfd_tpu_torch.cli import filter_mrc as TFM
 from visfd_tpu_torch.convert import to_numpy, to_torch
+from visfd_tpu_torch.features import blob as TB
 from visfd_tpu_torch.io import mrc
 from visfd_tpu_torch.ops import conv, eigen_cuda as EC
 from visfd_tpu_torch.ops import kernels as K
@@ -29,14 +30,14 @@ from visfd_tpu_torch.ops.filters import apply_gauss
 from visfd_tpu_torch.ops.tv_cuda import tv_votes
 from visfd_tpu_torch.parallel import sharded as TSH
 from visfd_tpu_torch.parallel.gather import to_host_np
-from visfd_tpu_torch.parallel.mesh import make_mesh, shard
+from visfd_tpu_torch.parallel.mesh import divides, make_mesh, shard
 from visfd_tpu_torch.parallel.sharded_features import (
-    find_extrema_sharded, propagate_watershed_sharded)
+    find_extrema_sharded, propagate_watershed_sharded, sharded_blob_dog)
 from visfd_tpu_torch.segment import connect as TC
 from visfd_tpu_torch.segment import extrema as TE
 from visfd_tpu_torch.segment.propagate import propagate_watershed
 from visfd_tpu_torch.segment.watershed import watershed
-from visfd_tpu_torch.utils.phantom import membrane_phantom
+from visfd_tpu_torch.utils.phantom import blob_phantom, membrane_phantom
 from visfd_tpu_torch.utils.progress import Report
 
 pytestmark = pytest.mark.cuda
@@ -328,6 +329,88 @@ def test_tv_cuda_kernel_matches_twin(cuda, case, field):
     np.testing.assert_allclose(outs[1], outs[0], rtol=3e-7, atol=0)
 
 
+# --- the blob ladder's extremum test ---------------------------------------
+
+# sides that are not multiples of the 32 x 32 x 32 tile, z over 2 tiles
+EXTREMUM_SHAPES = [(1, 5, 5), (3, 17, 33), (7, 33, 65), (40, 70, 45),
+                   (70, 40, 36)]
+
+
+def _extremum_inputs(shape, seed, field):
+    """Three scales and a mask with holes (boxes and single voxels; a few
+    non-binary and NaN mask values, which count as inside): ``normal`` noise, ``quantised`` noise
+    (ties within and across scales) or ``nan`` (NaNs in each scale);
+    clear extrema planted on the volume's faces (never candidates: a
+    neighbour lies outside) and one voxel inside each face."""
+    rng = _rng(seed)
+    p, m, n = (rng.normal(size=shape).astype(np.float32) for _ in range(3))
+    if field == "quantised":
+        p, m, n = (np.round(a * 2).astype(np.float32) / 2 for a in (p, m, n))
+    nz, ny, nx = shape
+    c = (nz // 2, ny // 2, nx // 2)
+    for k, (ax, at) in enumerate((a, t) for a in range(3)
+                                 for t in (0, shape[a] - 1, 1,
+                                           shape[a] - 2)):
+        zyx = list(c)
+        zyx[ax] = min(max(at, 0), shape[ax] - 1)
+        zyx[(ax + 1) % 3] = (zyx[(ax + 1) % 3] + k) % shape[(ax + 1) % 3]
+        m[tuple(zyx)] = 9.0 if k % 2 else -9.0
+    if field == "nan":
+        for a in (p, m, n):
+            a[rng.uniform(size=shape) < 0.02] = np.nan
+    mask = (rng.uniform(size=shape) > 0.005).astype(np.float32)
+    for _ in range(3):
+        lo = [int(rng.integers(0, s)) for s in shape]
+        mask[tuple(slice(a, a + max(1, s // 3)) for a, s in zip(lo, shape))] = 0
+    mask[rng.uniform(size=shape) < 0.02] = 0.5
+    mask.flat[rng.integers(0, mask.size)] = np.nan
+    return p, m, n, mask
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("field", ["normal", "quantised", "nan"])
+@pytest.mark.parametrize("shape", EXTREMUM_SHAPES)
+def test_blob_extremum_kernel_matches_twin(cuda, shape, field, masked,
+                                           monkeypatch):
+    """The kernel's codes equal the twin's masks with the sign test, and
+    ``_scale_candidates`` on the card (one launch over the volume; a
+    (2, 2) mesh's slab windows where it divides the volume) gives the
+    CPU's candidates and scores exactly."""
+    p, m, n, mask = _extremum_inputs(shape, sum(shape), field)
+    k = mask if masked else None
+    cpu = [torch.tensor(a) for a in (p, m, n)]
+    lo, hi = TB._extremum_masks(*cpu, None if k is None else torch.tensor(k))
+    want = ((lo & (cpu[1] < 0)).to(torch.uint8)
+            | ((hi & (cpu[1] > 0)).to(torch.uint8) << 1)).numpy()
+    card = [torch.tensor(a, device=cuda) for a in (p, m, n)]
+    kc = None if k is None else torch.tensor(k, device=cuda)
+    valid = None if kc is None else (kc != 0).view(torch.uint8)
+    got = TB._extremum_codes_cuda(*card, valid)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    if shape[0] >= 3 and field == "normal":
+        assert (want == 1).any() and (want == 2).any()
+
+    ref = TB._scale_candidates(*cpu, None if k is None else torch.tensor(k))
+    rep = Report(None)
+    for part, w in zip(TB._scale_candidates(*card, kc, rep), ref):
+        np.testing.assert_array_equal(part[0], w[0])
+        np.testing.assert_array_equal(part[1], w[1])
+    assert rep.counts[TB.KERNEL_LAUNCHES] == 1
+    assert TB.TWIN_SLABS not in rep.counts
+    mesh = make_mesh(4, devices=[cuda] * 4)
+    if divides(shape, mesh):
+        # several slabs a block, so windows start inside blocks too
+        monkeypatch.setattr(TB, "SLAB_VOXELS", 3 * shape[1] * shape[2] // 2)
+        vols = [shard(a, mesh) for a in (p, m, n)]
+        rep = Report(None)
+        got_m = TB._scale_candidates(
+            *vols, None if k is None else shard(k, mesh), rep)
+        for part, w in zip(got_m, ref):
+            np.testing.assert_array_equal(part[0], w[0])
+            np.testing.assert_array_equal(part[1], w[1])
+        assert rep.counts[TB.KERNEL_LAUNCHES] == 4 * -(-(shape[0] // 2) // 3)
+
+
 # --- the -mesh kernels -----------------------------------------------------
 
 def test_sharded_kernels_equal_single_on_card(cuda):
@@ -358,6 +441,22 @@ def test_sharded_kernels_equal_single_on_card(cuda):
     gs, gv = TSH.sym3_score_sharded(got, want_v=True)
     assert np.array_equal(to_host_np(gs), ss.cpu().numpy())
     assert np.array_equal(to_host_np(gv), sv.cpu().numpy())
+    # the blob ladder: the blocks' windows through the extremum kernel
+    x, slab, _, _ = blob_phantom(shape, seed=13, n_blobs=14, spacing=16,
+                                 diameters=(6.0, 9.0))
+    sig = [5.0 * 1.1 ** i / (2 * np.sqrt(3.0)) for i in range(8)]
+    kw = dict(minima_threshold=0.0, maxima_threshold=0.0,
+              use_threshold_ratios=False)
+    for m in (None, slab):
+        one = TB.blob_dog(x.to(cuda), sig, mask=None if m is None
+                          else m.to(cuda), **kw)
+        got_b = sharded_blob_dog(x.numpy(), sig, mesh, mask=None if m is None
+                                 else m.numpy(), **kw)
+        for a, b in zip(got_b, one):
+            assert len(b) > 5
+            np.testing.assert_array_equal(a.crds, b.crds)
+            np.testing.assert_array_equal(a.diameters, b.diameters)
+            np.testing.assert_array_equal(a.scores, b.scores)
 
 
 # --- the CLI and the segmentation on the card ------------------------------

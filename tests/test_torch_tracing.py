@@ -211,10 +211,12 @@ def test_byte_counters_equal_the_shapes_sums(name, inputs, monkeypatch):
     up, down = rep.counts[P.TO_DEVICE], rep.counts.get(P.TO_HOST, 0)
     if name == "blob":
         # the volume and the mask, once to the ladder and once more to
-        # the drawing; back come only the candidates: (x, y, z) int64
-        # and a float32 score each
+        # the drawing; back come only the candidates, two int64 each
+        # (the flat index with the kind, the score's bits), of which the
+        # lists keep some
         assert up == 4 * full
-        assert down > 0 and down % (3 * 8 + F32) == 0
+        kept = rep.counts["blob minima"] + rep.counts["blob maxima"]
+        assert down > 0 and down % (2 * 8) == 0 and down >= 16 * kept
     else:
         # binning: the volume up, the binned volume down; the binned
         # volume up again, the score down

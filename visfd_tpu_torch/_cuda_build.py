@@ -58,6 +58,9 @@ _SIGNATURES = {
     "visfd_hessian_principal_block": [_P, _I64, _I, _P, _I, _P, _I, _P, _I64,
                                       _P, _I64, _P, _I, _I, _I, _F, _I, _I,
                                       _I, _P],
+    # prev, mid, next, mask (or null), codes, oz, oy, ox, pad, gz0, gy0,
+    # nz, ny, stream
+    "visfd_blob_extremum": [_P] * 5 + [_I] * 8 + [_P],
     # t6, out, nvox, decreasing, formula, want_v, stream
     "visfd_sym3_score": [_P, _P, _I64, _I, _I, _I, _P],
     # sal, nvec, mask, taps, meta, out, nz, ny, nx, hw, rows, smem,

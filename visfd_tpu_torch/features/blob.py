@@ -17,16 +17,19 @@ than it, where the smallest is taken over the 3x3x3 boxes of the scales
 below and above and the 26 neighbours in its own scale (built from
 separable 3-wide minima along x, y and z).  Neighbours out of bounds or
 masked out, and NaN values, enter as NaN, which the minimum and maximum
-propagate, so they disqualify.  The test walks the z slabs of each
-block with 1-voxel halos (``parallel.blocks.iter_windows``), and only
-the candidates' coordinates (``torch.nonzero``, raster order) and
-scores leave the card, never a volume-sized mask; blocks of a -mesh run
-merge their lists into raster order, and over a mesh that spans ranks
-each scale's lists are all-gathered before that merge (the flat index
-is unique, so every rank holds the one-process list before the
-threshold and the NMS).  One implementation serves one device (a 1 x 1
-grid) and the mesh.  NMS runs on the host in the native
-``visfd_nms`` (no Python fallback).
+propagate, so they disqualify.  On the card the test and the sign test
+are one launch of ``csrc/blob_extremum.cu`` a mid scale, which reads
+the three scales and the mask in place and writes a byte a voxel; a
+-mesh run's blocks launch it on each z slab's windows with 1-voxel
+halos (``parallel.blocks.iter_windows``).  On the CPU the plain twin
+``_extremum_codes`` walks those slabs (a tensor is the one block of a
+1 x 1 grid).  Only the candidates' coordinates (``torch.nonzero``,
+raster order) and scores leave the card, in one copy, never a
+volume-sized mask; blocks of a -mesh run merge their lists into raster
+order, and over a mesh that spans ranks each scale's lists are
+all-gathered before that merge (the flat index is unique, so every rank
+holds the one-process list before the threshold and the NMS).  NMS runs
+on the host in the native ``visfd_nms`` (no Python fallback).
 """
 
 from __future__ import annotations
@@ -37,19 +40,25 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from visfd_tpu_torch import _cuda_build as cb
 from visfd_tpu_torch.ops import filters as F
 from visfd_tpu_torch.parallel import distributed as D
 from visfd_tpu_torch.parallel.blocks import iter_windows
 from visfd_tpu_torch.parallel.mesh import ShardedVolume
-from visfd_tpu_torch.utils.progress import count_copy, span
+from visfd_tpu_torch.utils.progress import Report, count_copy, span
 
 SORT_DECREASING = "decreasing"
 SORT_INCREASING = "increasing"
 SORT_DECREASING_MAGNITUDE = "decreasing_magnitude"
 SORT_INCREASING_MAGNITUDE = "increasing_magnitude"
 
-# voxels of a block per slab of the extremum test
+# voxels of a block per slab of the extremum test (the twin, and the
+# kernel over a -mesh run's blocks)
 SLAB_VOXELS = 2 ** 25
+
+# the Report counts of the extremum test's launches and twin slabs
+KERNEL_LAUNCHES = "blob extremum: kernel launches"
+TWIN_SLABS = "blob extremum: twin slabs"
 
 
 @dataclasses.dataclass
@@ -123,38 +132,145 @@ def _extremum_masks(prev, mid, next_, mask):
     return is_min, is_max
 
 
+def _twin_codes(inb, pw, mw, nw, kw):
+    """The twin's test AND the sign test of one slab's windows as the
+    kernel's codes (uint8: 1 a minimum, 2 a maximum, 0 neither), and the
+    slab's centre values."""
+    lo, hi, c = _extremum_codes(inb, pw, mw, nw, kw)
+    codes = ((lo & (c < 0)).to(torch.uint8)
+             | ((hi & (c > 0)).to(torch.uint8) << 1))
+    return codes, c
+
+
+def _extremum_codes_cuda(prev, mid, next_, valid, origin=None, shape=None):
+    """The codes of ``_twin_codes`` from one launch of
+    ``csrc/blob_extremum.cu`` over three contiguous (Z, Y, X) float32
+    CUDA tensors, read in place; ``valid`` is the uint8 ``mask != 0`` of
+    their shape, or None (no mask).  With ``origin`` = (z0, y0) and the
+    volume's ``shape``, they are a slab's windows with a 1-voxel halo on
+    every face (``iter_windows``'s) around the region that starts at
+    (z0, y0, 0) of the volume; a halo voxel outside the volume is known
+    by its coordinate."""
+    vols = [prev, mid, next_] + ([] if valid is None else [valid])
+    if any(v.device.type != "cuda" or v.ndim != 3 or v.shape != mid.shape
+           for v in vols) or any(v.dtype != torch.float32
+                                 for v in vols[:3]) or (
+            valid is not None and valid.dtype != torch.uint8):
+        got = [(v.dtype, tuple(v.shape), str(v.device)) for v in vols]
+        raise ValueError(f"blob extremum kernel: three float32 CUDA volumes "
+                         f"and a uint8 mask of one (Z, Y, X) shape, got "
+                         f"{got}")
+    pad = 0 if origin is None else 1
+    oz, oy, ox = (n - 2 * pad for n in mid.shape)
+    z0, y0 = (0, 0) if origin is None else origin
+    nz, ny = (oz, oy) if shape is None else tuple(shape[-3:-1])
+    if mid.shape[1] * mid.shape[2] >= 2 ** 31 or -(-oz // 32) > 65535 \
+            or -(-oy // 32) > 65535:
+        raise ValueError(f"blob extremum kernel: {tuple(mid.shape)} exceeds "
+                         f"its 32-bit plane offsets or its grid")
+    codes = torch.empty((oz, oy, ox), dtype=torch.uint8, device=mid.device)
+    if codes.numel() == 0:
+        return codes
+    prev, mid, next_ = (v.contiguous() for v in (prev, mid, next_))
+    mask = None if valid is None else valid.contiguous()
+    with torch.cuda.device(mid.device):
+        cb.check(cb.library().visfd_blob_extremum(
+            prev.data_ptr(), mid.data_ptr(), next_.data_ptr(),
+            None if mask is None else mask.data_ptr(), codes.data_ptr(),
+            oz, oy, ox, pad, z0, y0, nz, ny, cb.stream_of(mid)),
+            "visfd_blob_extremum")
+    _extremum_codes_cuda.launches += 1
+    return codes
+
+
+_extremum_codes_cuda.launches = 0
+
+
+def _candidates(codes, centre, z0, y0, report=None):
+    """((zyx_min, scores_min), (zyx_max, scores_max)) of a (Z, Y, X) code
+    volume on the host, in raster order, (z, y) offset by (z0, y0);
+    ``centre`` holds the mid scale's values at the codes' voxels (a view
+    will do).  ``torch.nonzero`` waits for the count; the flat indices,
+    kinds and scores then come to the host in one copy."""
+    flat = torch.nonzero(codes.reshape(-1)).squeeze(1)
+    if not len(flat):
+        return [(np.zeros((0, 3), np.int64), np.zeros(0, np.float32))] * 2
+    _, ny, nx = codes.shape
+    z, r = flat // (ny * nx), flat % (ny * nx)
+    sc = centre[z, r // nx, r % nx]
+    # the kind in the low 2 bits of the flat index; the score's bits
+    packed = torch.stack([flat * 4 + codes.reshape(-1)[flat],
+                          sc.view(torch.int32).to(torch.int64)])
+    host = packed.cpu().numpy()
+    count_copy(report, packed, host)
+    kind = host[0] & 3
+    zyx = np.stack(np.unravel_index(host[0] >> 2, codes.shape), axis=1)
+    zyx[:, 0] += z0
+    zyx[:, 1] += y0
+    sc = host[1].astype(np.int32).view(np.float32)
+    return [(zyx[kind == k], sc[kind == k]) for k in (1, 2)]
+
+
+def _tested(prev, mid, next_, mask, card, multi):
+    """(z0, y0, codes, centre) of each piece of one scale's test (see
+    ``_candidates``), computed as it is drawn.  On the ``card``, a plain
+    tensor or a 1 x 1 grid (not ``multi``) is one piece: one kernel
+    launch over the whole volume, read in place.  A -mesh run's blocks
+    on the card launch the kernel on each z slab's windows; CPU tensors
+    run the twin on them."""
+    if card and not multi:
+        p, m, n, k = (v.blocks[0][0] if isinstance(v, ShardedVolume) else v
+                      for v in (prev, mid, next_, mask))
+        # made a scale, not held through the ladder, whose blurs are the
+        # card's peak
+        valid = None if k is None else (k != 0).view(torch.uint8)
+        codes = _extremum_codes_cuda(p, m, n, valid)
+        del valid
+        yield 0, 0, codes, m
+        return
+    for _, _, z0, y0, w in iter_windows([prev, mid, next_, mask], [0.0] * 4,
+                                        (1, 1, 1), SLAB_VOXELS):
+        if card:
+            kw = w[4]
+            codes = _extremum_codes_cuda(
+                *w[1:4], None if kw is None else (kw != 0).view(torch.uint8),
+                (z0, y0), mid.shape)
+            yield z0, y0, codes, w[2][1:-1, 1:-1, 1:-1]
+        else:
+            yield (z0, y0) + _twin_codes(*w)
+
+
 def _scale_candidates(prev, mid, next_, mask, report=None):
     """Candidates of one scale: (zyx_min, scores_min), (zyx_max,
     scores_max) as host arrays, the coordinates in raster order: the
     extremum test AND the sign test (minima score < 0, maxima > 0,
-    ``feature.hpp:318-341``), compacted per slab on the device.  A
+    ``feature.hpp:318-341``; ``_tested``), compacted on the device.  A
     ``Report`` gets the spans "blob: extremum test", "blob: compaction
-    + copy" and "blob: candidate merge", and counts the copies to the
-    host."""
+    + copy" and "blob: candidate merge", adds the pieces to the count
+    ``KERNEL_LAUNCHES`` (on the card) or ``TWIN_SLABS``, and counts the
+    copies to the host."""
     found = ([], []), ([], [])
     multi = isinstance(mid, ShardedVolume) and mid.mesh.shape != (1, 1)
     spans = multi and mid.mesh.spans_processes
-    slabs = iter_windows([prev, mid, next_, mask], [0.0] * 4, (1, 1, 1),
-                         SLAB_VOXELS)
+    card = (mid.local_block if isinstance(mid, ShardedVolume)
+            else mid).device.type == "cuda"
+    pieces = _tested(prev, mid, next_, mask, card, multi)
+    drawn = 0
     while True:
         with span("blob: extremum test", report):
             try:
-                _, _, z0, y0, w = next(slabs)
+                z0, y0, codes, c = next(pieces)
             except StopIteration:
                 break
-            lo, hi, c = _extremum_codes(*w)
-            sels = (lo & (c < 0), hi & (c > 0))
+        drawn += 1
         with span("blob: compaction + copy", report):
-            for (crds, scores), sel in zip(found, sels):
-                idx = torch.nonzero(sel)
-                if len(idx):
-                    sc = c[sel]
-                    scores.append(sc.cpu().numpy())
-                    count_copy(report, sc, scores[-1])
-                    idx[:, 0] += z0
-                    idx[:, 1] += y0
-                    crds.append(idx.cpu().numpy())
-                    count_copy(report, idx, crds[-1])
+            for (crds, scores), (zyx, sc) in zip(
+                    found, _candidates(codes, c, z0, y0, report)):
+                if len(zyx):
+                    crds.append(zyx)
+                    scores.append(sc)
+    if isinstance(report, Report):
+        report.add_count(KERNEL_LAUNCHES if card else TWIN_SLABS, drawn)
     out = []
     with span("blob: candidate merge", report):
         for crds, scores in found:
@@ -303,6 +419,9 @@ def blob_dog(
 
     minima = pack(min_crds, min_sig, min_sc)
     maxima = pack(max_crds, max_sig, max_sc)
+    if isinstance(report, Report):
+        n = [report.counts.get(k, 0) for k in (KERNEL_LAUNCHES, TWIN_SLABS)]
+        report.line(f"{KERNEL_LAUNCHES}: {n[0]}; {TWIN_SLABS}: {n[1]}")
 
     # final threshold filter (feature.hpp:362-417)
     if np.isfinite(minima_threshold) or np.isfinite(maxima_threshold) \
