@@ -110,7 +110,9 @@ Phases:
    per axis (TF32 off), and against the fused kernel where both run;
    the per-axis mode at 8e's ``-gauss 21`` (halfwidth 55) on
    (256, 512, 512) against its twin; the fused kernel at the blob
-   ladder's halfwidths 6-11 at 1024 x 1024 x 256; the dense-correlation
+   ladder's halfwidths 6-11 at 1024 x 1024 x 256 (6-10 the wide
+   instance, bit for bit the runtime instance it replaced and timed
+   beside it); the dense-correlation
    kernel at -ggauss's and -dogg's kernels (7^3, 15^3) on (256, 512, 512)
    beside ``conv3d``; each per-axis and dense time as a share of its
    bound, beside the time of the design before (``BEFORE_MS``); (8g)
@@ -121,7 +123,8 @@ Phases:
    ``filter_mrc -w 19.6 -mask M -blob minima B 160 280 1.01`` (the
    reference's ladder, 58 scales)
    on a seeded 1024 x 1024 x 256 phantom of 1500 dark spheres: the
-   ``blur3`` launches against the ladder's 4 a scale, the extremum
+   ``blur3`` launches against the ladder's 4 a scale (all of them the
+   wide instance's, the run's Report count too), the extremum
    kernel's one a mid scale, the spans (read,
    LoG ladder, extremum test, compaction, NMS, drawing, write), wall,
    peak card memory, host peak RSS, and the share of the phantom's
@@ -504,7 +507,7 @@ def _kernel_name(mangled):
     for d in re.finditer(r"(?=(\d{1,3}))", mangled):
         end = d.start() + len(d.group(1))
         cand = mangled[end:end + int(d.group(1))]
-        if cand.endswith("_kernel") and cand.isidentifier():
+        if "_kernel" in cand and cand.isidentifier():
             name, rest = cand, mangled[end + len(cand):]
     if name != mangled and rest.startswith("I"):
         args = re.findall(r"L([ib])(\d+)E", rest[:rest.find("EE") + 2])
@@ -2542,8 +2545,12 @@ FILTER_EXACT = ("-median", "-erode", "-open")
 # the per-axis blur mode (a tap load beside every FMA) had before their
 # redesign, on an H100 80GB HBM3 at 700 W (chip_smoke.py's own phases
 # 8a and 9a then), printed beside this run's; None: not timed then
+# the fused blur at the ladder's halfwidths 6-10 before its wide
+# instance (8a at 268M: the compiled instances 6-8, the runtime one 9-10)
 BEFORE_MS = {"blur3_axis hw 55": None, "blur3_axis hw 60": 2.698,
-             "blur3_axis hw 80": 3.599, "conv3d_dense 7^3": 14.482,
+             "blur3_axis hw 80": 3.599, "blur3 hw 6": 3.628,
+             "blur3 hw 7": 4.109, "blur3 hw 8": 4.690, "blur3 hw 9": 12.770,
+             "blur3 hw 10": 15.627, "conv3d_dense 7^3": 14.482,
              "conv3d_dense 15^3": 103.263,
              "conv3d_dense (1, 21, 21)": 96.222,
              "conv3d_dense 31^3": 48.054}
@@ -2696,15 +2703,27 @@ def phase_filter_kernels(chk, card, dev="cuda"):
     del x, got
     torch.cuda.empty_cache()
 
-    # the fused kernel at the ladder's halfwidths, at the blob run's size
+    # the fused kernel at the ladder's halfwidths, at the blob run's size:
+    # the wide instance (6-10) bit for bit the runtime instance, which
+    # took 9-10 before it and still takes 11
     x = torch.randn(BLOB_SHAPE, generator=gen, device=dev)
     nvox = x.numel()
     for hw in LADDER_HWS:
         ks = _gauss_taps(hw, dev)
-        plan = blur_cuda.smem_plan(hw, hw, hw)
+        kind = blur_cuda.instance(hw, hw, hw)
+        w0 = blur_cuda.blur3.wide_launches
+        got = blur_cuda.blur3(x, ks)
+        chk.check(blur_cuda.blur3.wide_launches - w0 == (kind == "wide"),
+                  f"blur3 hw={hw} takes the {kind} instance "
+                  f"({blur_cuda.blur3.wide_launches - w0} wide launches)")
         extra = ""
+        if kind == "wide":
+            nb = _bits_differ(got, blur_cuda.blur3_fused(x, ks, "runtime"))
+            chk.check(nb == 0, f"blur3 hw={hw} wide instance == the runtime "
+                               f"instance at {BLOB_SHAPE}: {nb} words differ")
+            rms = cuda_ms(lambda: blur_cuda.blur3_fused(x, ks, "runtime"), 3)
+            extra = f"; the runtime instance {rms:.3f} ms"
         if hw in (6, 9):
-            got = blur_cuda.blur3(x, ks)
             want, pms = timed_ms(lambda: blur_cuda.blur3_plain(x, ks))
             ok, err, _ = close(got, want, 1e-5, 1e-6)
             chk.check(ok, f"blur3 hw={hw} at {BLOB_SHAPE} against its twin: "
@@ -2716,15 +2735,18 @@ def phase_filter_kernels(chk, card, dev="cuda"):
             ok_l, err_l, _ = close(lib, got, 1e-4, 1e-5)
             chk.check(ok_l, f"conv3d per axis (library, TF32 off) == blur3 "
                             f"hw={hw} at {BLOB_SHAPE}: max|d|={err_l:.3g}")
-            del lib, got
+            del lib
             lms = cuda_ms(lambda: _blur_library(x, ks), 2)
-            extra = f"; plain {pms:.3f} ms, conv3d per axis {lms:.3f} ms"
+            extra += f"; plain {pms:.3f} ms, conv3d per axis {lms:.3f} ms"
+        del got
         ms = cuda_ms(lambda: blur_cuda.blur3(x, ks), 3)
         b = bound_ms(8 * nvox, 3 * BLUR_OPS_PER_TAP * (2 * hw + 1) * nvox)
-        print(f"  blur3 hw={hw} ({'compiled' if plan[0] == 8 and hw <= 8 else 'runtime'} "
-              f"width, {plan[0]} rows): {ms:.3f} ms at {BLOB_SHAPE}, bound "
-              f"{b[0]:.3f} ms ({b[1]}), {100 * b[0] / ms:.0f}%{extra} "
-              f"[{card}]", flush=True)
+        print(f"  blur3 hw={hw} ({kind} instance, "
+              f"{blur_cuda.smem_plan(hw, hw, hw)[0]} rows of threads): "
+              f"{ms:.3f} ms at {BLOB_SHAPE}, bound {b[0]:.3f} ms ({b[1]}), "
+              f"{100 * b[0] / ms:.0f}%{extra} [{card}]", flush=True)
+        if kind == "wide":
+            _speed_line(f"blur3 hw {hw}", ms, b[0], card)
     del x
     torch.cuda.empty_cache()
 
@@ -2774,9 +2796,10 @@ def _blob_diameters():
 def _blob_run(chk, card, tmp, fin, fmask, stem, dev, mesh=None):
     """``filter_mrc -w 19.6 -mask M -in T -out O -blob minima B.txt
     BLOB_LADDER`` (with -mesh 4 on ``mesh``): (exit code, wall, Report,
-    the launches of ``_blob_wrappers``, peak card GiB, host peak RSS
-    GiB)."""
+    the launches of ``_blob_wrappers`` and the blur's wide-instance ones,
+    peak card GiB, host peak RSS GiB)."""
     import torch
+    from visfd_tpu_torch.ops import blur_cuda
     argv = (f"-w {BLOB_W} -mask {fmask} -in {fin} -out {stem}.mrc -blob "
             f"minima {stem}.txt {BLOB_LADDER}").split()
     if mesh is not None:
@@ -2786,9 +2809,11 @@ def _blob_run(chk, card, tmp, fin, fmask, stem, dev, mesh=None):
     wrappers = _blob_wrappers()
     for w in wrappers.values():
         w.launches = 0
+    wide0 = blur_cuda.blur3.wide_launches
     with _PeakRss() as rss:
         rc, wall, rep = _run_cli(argv, dev, mesh)
     n = {k: w.launches for k, w in wrappers.items()}
+    n["blur3_wide"] = blur_cuda.blur3.wide_launches - wide0
     peak = torch.cuda.max_memory_allocated() / 2**30 if dev != "cpu" else 0.0
     return rc, wall, rep, n, peak, rss.gib
 
@@ -2931,6 +2956,7 @@ def phase_blob(chk, card, tmp, dev="cuda"):
     import torch
     from visfd_tpu_torch.features import blob as TB
     from visfd_tpu_torch.io import mrc
+    from visfd_tpu_torch.ops import blur_cuda
     from visfd_tpu_torch.ops.filters import log_halfwidths
     from visfd_tpu_torch.utils.phantom import blob_phantom
 
@@ -2964,6 +2990,13 @@ def phase_blob(chk, card, tmp, dev="cuda"):
     chk.check(n_blur == 4 * len(diams),
               f"blur3 launches {n_blur} == 4 per scale x {len(diams)} scales "
               f"(two masked Gaussians: numerator and mask)")
+    n_wide = 4 * sum(blur_cuda.instance(*log_halfwidths(s, 0.02, tr)[2])
+                     == "wide" for s in sig)
+    chk.check(launches["blur3_wide"] == rep.counts[blur_cuda.WIDE_LAUNCHES]
+              == n_wide,
+              f"blur3 wide-instance launches {launches['blur3_wide']} (the "
+              f"Report's {rep.counts[blur_cuda.WIDE_LAUNCHES]}) == 4 per "
+              f"scale at halfwidths {blur_cuda.WIDE_HALFWIDTHS} ({n_wide})")
     n_ext = _blob_extremum_launches()
     counts = {k: rep.counts.get(k, 0)
               for k in (TB.KERNEL_LAUNCHES, TB.TWIN_SLABS)}

@@ -123,3 +123,52 @@ def test_blur_smem_plan_fits_up_to_the_cap():
             assert nbytes <= 232448
     assert blur_cuda.smem_plan(cap + 1, cap + 1, cap + 1) is None
     assert blur_cuda.smem_plan(4, 4, 4) == (8, 4 * (3 * 40 * 40 + 2 * 32 * 40))
+
+
+@pytest.mark.parametrize("h", range(1, 13))
+def test_blur_instance_for_each_halfwidth(h):
+    """One halfwidth on every axis takes the wide instance at 6-10, a
+    compiled one at 1-5, the runtime one past 10; uneven widths take the
+    runtime one; every plan fits a Hopper block."""
+    want = ("compiled" if h <= 5 else "wide" if h <= 10 else "runtime")
+    assert blur_cuda.instance(h, h, h) == want
+    uneven = ((h, h, h - 1), (h - 1, h, h), (h, h + 1, h), (h, 0, h),
+              (0, h, 1))
+    for hs in uneven:
+        assert blur_cuda.instance(*hs) == "runtime"
+    for hs in ((h, h, h),) + uneven:
+        rows, nbytes = blur_cuda.smem_plan(*hs)
+        assert rows in (8, 4, 2, 1) and nbytes <= blur_cuda.SMEM_LIMIT
+    if want == "wide":
+        # four staged (32 + 2h)-row planes, rows of 32 + 2a + 4 floats (a:
+        # h rounded up to 4), two planes of x-blurred rows 36 apart, the
+        # three axes' taps in float4s
+        a = 8 if h <= 8 else 12
+        wp = {6: 16, 7: 16, 8: 20, 9: 20, 10: 24}[h]
+        ry = 32 + 2 * h
+        assert blur_cuda.smem_plan(h, h, h) == (
+            8, 4 * (4 * ry * (36 + 2 * a) + 2 * ry * 36 + 3 * wp))
+
+
+def test_blur_plan_of_the_other_widths_is_unchanged():
+    """The wide instance moves neither the compiled instances' plan nor
+    the largest halfwidth a fused tile holds, nor the per-axis mode
+    past it."""
+    assert blur_cuda.smem_plan(4, 4, 4) == (8, 4 * (3 * 40 * 40 + 2 * 32 * 40))
+    assert blur_cuda.MAX_KERNEL_HALFWIDTH == 54
+    assert blur_cuda.instance(54, 54, 54) == "runtime"
+    assert blur_cuda.instance(55, 55, 55) == "axis"
+    assert blur_cuda.smem_plan(55, 55, 55) is None
+
+
+@pytest.mark.parametrize("shape,h,n_sm,want", [
+    ((256, 1024, 1024), 10, 132, 256),   # 4 waves of the whole depth
+    ((256, 1024, 1024), 9, 132, 256),
+    ((512, 64, 64), 10, 132, 8),         # 4 tiles x 64 chunks, one wave
+    ((128, 512, 512), 10, 132, 128),     # one wave
+    ((64, 64, 64), 10, 132, 1),          # 4 tiles: 256 blocks, one wave
+    ((1, 40, 40), 9, 132, 1),
+])
+def test_wide_chunk_balances_waves_and_halo_planes(shape, h, n_sm, want):
+    tz = blur_cuda.wide_chunk(shape, h, n_sm)
+    assert tz == want and 1 <= tz <= shape[0]

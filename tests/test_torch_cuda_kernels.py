@@ -117,6 +117,32 @@ def test_blur3_axis_mode_equals_fused_kernel(cuda):
                                atol=1e-7 * float(a.abs().max()))
 
 
+@pytest.mark.parametrize("shape", [(12, 20, 33), (40, 70, 68),
+                                   (3, 100, 1030), (70, 2, 44)])
+@pytest.mark.parametrize("hw", [6, 8, 9, 10])
+def test_blur3_wide_instance_equals_runtime_instance(cuda, hw, shape):
+    """The wide instance sums every voxel's taps as the runtime one does:
+    equal bits with rows of 16 bytes and without, ragged tiles, a side
+    of 2, a volume thinner than the halo; a haloed block's interior
+    equals the whole volume's bits."""
+    from visfd_tpu_torch.ops import blur_cuda
+    rng = _rng(11)
+    x = rng.normal(size=shape).astype(np.float32)
+    ks = [to_torch(rng.uniform(-1.0, 1.0, 2 * hw + 1).astype(np.float32),
+                   cuda) for _ in range(3)]
+    xc = to_torch(x, cuda)
+    w0 = blur_cuda.blur3.wide_launches
+    got = blur3(xc, ks)
+    assert blur_cuda.blur3.wide_launches == w0 + 1
+    want = blur_cuda.blur3_fused(xc, ks, "runtime")
+    g = got.cpu().numpy()
+    assert np.array_equal(g, want.cpu().numpy())
+    sub, (z0, z1, y0, y1) = _haloed_block(x, hw, hw)
+    blk = blur3(to_torch(sub, cuda), ks).cpu().numpy()
+    assert np.array_equal(blk[hw:hw + z1 - z0, hw:hw + y1 - y0],
+                          g[z0:z1, y0:y1])
+
+
 def _haloed_block(x, hz, hy):
     """(the block of planes z0:z1 and rows y0:y1 of x, its middle half,
     read with a halo hz planes and hy rows deep, zeros beyond the
@@ -174,18 +200,29 @@ def test_conv3d_dense_kernel_matches_twin(cuda, hs, shape):
 
 
 @pytest.mark.parametrize("field", ["normal", "top5"])
-@pytest.mark.parametrize("hw", [4, 5])
+@pytest.mark.parametrize("hw", [4, 5, 6, 7, 8, 9, 10, (9, 10, 9)])
 def test_blur3_cuda_kernel_matches_twin(cuda, hw, field):
+    """Each instance against the twin: 4 (ASYM's uneven widths) the
+    runtime one, 5 a compiled one, 6-10 the wide one, (9, 10, 9) (hx, hy,
+    hz) the runtime one; the wide launches are counted."""
+    from visfd_tpu_torch.ops import blur_cuda
     rng = _rng(4)
     x = rng.normal(size=(12, 20, 33)).astype(np.float32)
     mask = (rng.uniform(size=x.shape) > 0.3).astype(np.float32)
     if field == "top5":  # scattered, as -tv-best 0.05 leaves a field
         x = np.where(x >= np.quantile(x, 0.95), x, 0.0).astype(np.float32)
-    ks = ASYM if hw == 4 else tuple(K.gauss_kernel_1d(2.0, hw)
-                                    for _ in range(3))
+    hws = hw if isinstance(hw, tuple) else (hw,) * 3
+    ks = ASYM if hw == 4 else tuple(K.gauss_kernel_1d(2.0, h)
+                                    for h in hws)
+    kind = blur_cuda.instance(*(len(k) // 2 for k in ks))
+    assert kind == ("wide" if hw in (6, 7, 8, 9, 10) else
+                    "compiled" if hw == 5 else "runtime")
     xc = to_torch(x, cuda)
+    n0, w0 = blur_cuda.blur3.launches, blur_cuda.blur3.wide_launches
     got = blur3(xc, ks)
     torch.cuda.synchronize()
+    assert blur_cuda.blur3.launches == n0 + 1
+    assert blur_cuda.blur3.wide_launches == w0 + (kind == "wide")
     want = blur3_plain(xc, [to_torch(k, cuda) for k in ks])
     _close_blur(to_numpy(got), to_numpy(want))
     got_m = conv.separable_conv3d(xc, ks, mask=to_torch(mask, cuda))

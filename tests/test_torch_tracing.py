@@ -19,6 +19,7 @@ import torch
 
 from visfd_tpu_torch.cli import filter_mrc as TFM
 from visfd_tpu_torch.io import mrc
+from visfd_tpu_torch.ops import blur_cuda
 from visfd_tpu_torch.parallel.gather import to_host_np
 from visfd_tpu_torch.utils import progress as P
 from visfd_tpu_torch.utils.phantom import blob_phantom, membrane_phantom
@@ -225,6 +226,9 @@ def test_byte_counters_equal_the_shapes_sums(name, inputs, monkeypatch):
         assert down == (per + 1) * binned
     assert out.getvalue().splitlines()[-1] == (
         f"host<->device bytes: {up} to the device, {down} to the host")
+    # every run counts its launches of the blur's wide instance: none on
+    # the CPU, where the blurs take the twin
+    assert rep.counts[blur_cuda.WIDE_LAUNCHES] == 0
 
 
 def test_shard_and_to_host_np_count_their_copies(monkeypatch):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time variants of the port's CUDA kernels on one NVIDIA GPU.
 
-    python3 tune_kernels.py [--reps N] [--kernels main|filters]
+    python3 tune_kernels.py [--reps N] [--kernels main|filters|ladder]
 
 Each entry of VARIANTS edits a copy of ``visfd_tpu_torch/csrc`` (exact
 text replacements), which is built with the package's nvcc flags into a
@@ -17,7 +17,10 @@ the schedule, not the arithmetic), and sparse voting must equal
 dense.  ``--kernels filters`` takes FILTER_VARIANTS instead and times
 the dense correlation and the blur's per-axis mode on
 ``compare_kernels.filter_inputs``, each variant's outputs checked bit for
-bit against the first's.  One JSON line per variant and turn; the last
+bit against the first's; ``--kernels ladder`` takes LADDER_VARIANTS and
+times the blur's wide instance at the blob ladder's halfwidths on 268M
+voxels, checked bit for bit against the first variant's and the runtime
+instance's outputs.  One JSON line per variant and turn; the last
 line says whether every check held.
 """
 
@@ -72,12 +75,34 @@ FILTER_VARIANTS = {
 }
 
 
+# text edits of csrc/blur.cu's wide instance, timed at the blob ladder's
+# halfwidths on 268M voxels (``--kernels ladder``); "py" entries set the
+# module constants of ops/blur_cuda that mirror an edited tile
+LADDER_VARIANTS = {
+    "as is": [],
+    "1 block an SM": [("blur.cu", "__launch_bounds__(kWWarps * 32, 2)",
+                       "__launch_bounds__(kWWarps * 32, 1)")],
+    "x pass 4 outputs a thread": [("blur.cu", "constexpr int kWXR = 8;",
+                                   "constexpr int kWXR = 4;")],
+    "3 staged planes": [("blur.cu", "constexpr int kWStages = 4;",
+                         "constexpr int kWStages = 3;"),
+                        ("py", "_WIDE_STAGES", 3)],
+    "streaming stores": [("blur.cu", "          out[zo * nplane + "
+                          "static_cast<int64_t>(yb + q) * nx + x] = o[q];",
+                          "          __stcs(&out[zo * nplane + "
+                          "static_cast<int64_t>(yb + q) * nx + x], o[q]);")],
+}
+LADDER_SHAPE = (256, 1024, 1024)
+
+
 def build(name, edits, cb, tmp):
     """Copy csrc, apply the edits and start one nvcc per source; returns
     (directory, [(source, process)])."""
     d = os.path.join(tmp, name.replace(" ", "_"))
     shutil.copytree(cb.CSRC, d)
     for fn, old, new in edits:
+        if fn == "py":
+            continue
         path = os.path.join(d, fn)
         text = open(path).read()
         if old not in text:
@@ -92,10 +117,14 @@ def build(name, edits, cb, tmp):
 
 def link(name, d, procs, cb):
     """Wait for the compiles of a variant and link its library."""
+    logs = []
     for src, p in procs:
         out = p.communicate()[0]
         if p.returncode != 0:
             raise RuntimeError(f"{name}: nvcc {src} failed\n{out}")
+        logs.append(out)
+    with open(os.path.join(d, "ptxas.log"), "w") as fh:
+        fh.write("".join(logs))
     subprocess.run([cb._nvcc(), *cb.NVCC_FLAGS[:2], "-shared", "-o",
                     "lib.so", *[s + ".o" for s, _ in procs]], cwd=d,
                    check=True, capture_output=True)
@@ -139,10 +168,67 @@ def tune_filters(cb, reps):
     return ok
 
 
+def tune_ladder(cb, reps):
+    """Time LADDER_VARIANTS in turns (first to last, last to first) at
+    the blob ladder's halfwidths on LADDER_SHAPE, each through the wide
+    instance; True when every variant's outputs equal the first's, and
+    the first's the runtime instance's, bit for bit."""
+    import torch
+    from chip_smoke import _gauss_taps, _ptxas_report, bound_ms
+    from visfd_tpu_torch.ops import blur_cuda
+    with tempfile.TemporaryDirectory() as tmp:
+        builds = {n: build(n, e, cb, tmp)
+                  for n, e in LADDER_VARIANTS.items()}
+        libs = {n: load(link(n, *b, cb), cb) for n, b in builds.items()}
+        for n, (d, _) in builds.items():
+            with open(os.path.join(d, "ptxas.log")) as fh:
+                for ln in _ptxas_report(fh.read()):
+                    if ln.startswith("blur3_kernel_wide"):
+                        print(f"{n}: {ln}", flush=True)
+        gen = torch.Generator(device="cuda").manual_seed(CK.SEED + 19)
+        x = torch.randn(LADDER_SHAPE, generator=gen, device="cuda")
+        nvox = x.numel()
+        names = list(LADDER_VARIANTS)
+        ref, ok = {}, True
+        consts = {k: getattr(blur_cuda, k) for e in LADDER_VARIANTS.values()
+                  for fn, k, _ in e if fn == "py"}
+        for order in (names, names[::-1]):
+            for name in order:
+                cb.library = (lambda lib: lambda: lib)(libs[name])
+                for k, v in consts.items():
+                    setattr(blur_cuda, k, v)
+                for fn, k, v in LADDER_VARIANTS[name]:
+                    if fn == "py":
+                        setattr(blur_cuda, k, v)
+                t, differ = {}, {}
+                for h in blur_cuda.WIDE_HALFWIDTHS:
+                    ks = _gauss_taps(h, "cuda")
+                    out = blur_cuda.blur3_fused(x, ks, "wide")
+                    if h not in ref:
+                        ref[h] = out
+                        rt = blur_cuda.blur3_fused(x, ks, "runtime")
+                        ok = ok and CK.bits_differ(out, rt) == 0
+                        del rt
+                    differ[h] = CK.bits_differ(out, ref[h])
+                    del out
+                    ms = cuda_ms(lambda: blur_cuda.blur3_fused(
+                        x, ks, "wide"), reps)
+                    b = bound_ms(8 * nvox, 6 * (2 * h + 1) * nvox)[0]
+                    t[f"hw {h}"] = f"{ms:.3f} ms, {100 * b / ms:.1f}%"
+                ok = ok and not any(differ.values())
+                print(json.dumps({"variant": name, "ms": t,
+                                  "words differing from the first "
+                                  "variant": differ}), flush=True)
+        for k, v in consts.items():
+            setattr(blur_cuda, k, v)
+    return ok
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--kernels", choices=("main", "filters"), default="main")
+    ap.add_argument("--kernels", choices=("main", "filters", "ladder"),
+                    default="main")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -157,8 +243,9 @@ def main():
                          text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
     print(f"card: {card}", flush=True)
-    if args.kernels == "filters":
-        ok = tune_filters(cb, args.reps)
+    if args.kernels in ("filters", "ladder"):
+        ok = (tune_filters if args.kernels == "filters" else tune_ladder)(
+            cb, args.reps)
         print(f"[{card}]")
         print(json.dumps({"ok": ok}))
         return 0 if ok else 1

@@ -43,6 +43,9 @@ _SIGNATURES = {
     # in, out, taps (kz | ky | kx), hx, hy, hz, nz, ny, nx, rows, smem,
     # stream
     "visfd_blur3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # in, out, taps (kz | ky | kx), hw, nz, ny, nx, output planes a block,
+    # smem, stream
+    "visfd_blur3_wide": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # in, out, taps, hw, nz, ny, nx, axis (0: z, 1: y, 2: x), stream
     "visfd_blur_axis": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # in, out, flipped taps (kz, ky, kx; rows padded to a multiple of 4),

@@ -115,6 +115,7 @@ from visfd_tpu_torch.io.coords import (
     fmt_g, read_blob_coords_file, read_coordinates, write_blob_coords_file)
 from visfd_tpu_torch.io.pointcloud import write_oriented_pointcloud_ply
 from visfd_tpu_torch.linalg import sym3
+from visfd_tpu_torch.ops import blur_cuda
 from visfd_tpu_torch.ops import draw as D
 from visfd_tpu_torch.ops import filters as F
 from visfd_tpu_torch.ops import kernels as K
@@ -1292,9 +1293,13 @@ def run(argv, device="cuda", report: Optional[Report] = None,
     put several blocks on one card or on the CPU); in a multi-process
     cluster, this rank's devices.  Whatever the path, the run's last
     line is the bytes it copied each way between host and device
-    (``Report.format_copies``)."""
+    (``Report.format_copies``), and the report counts the run's launches
+    of the blur's wide instance (``blur_cuda.WIDE_LAUNCHES``)."""
     rep = report if report is not None else Report(sys.stderr)
+    wide0 = blur_cuda.blur3.wide_launches
     code = _run(argv, torch.device(device), rep, mesh_devices)
+    rep.add_count(blur_cuda.WIDE_LAUNCHES,
+                  blur_cuda.blur3.wide_launches - wide0)
     rep.line(rep.format_copies())
     return code
 

@@ -22,14 +22,42 @@
 // beside the x pass of the next plane, so each step has one barrier.
 // Each thread then adds its xy-blurred value, with the z taps, to the
 // 2hz+1 output planes it reaches and writes the one it completes.
-// Input planes beyond the volume enter as zeros.  One halfwidth 1-8 on
+// Input planes beyond the volume enter as zeros.  One halfwidth 1-5 on
 // every axis is compiled as such: a 32 x 32 tile, each thread 4
 // adjacent output rows (their y windows share 4 + 2hy x-blurred rows,
 // read once), taps, footprint offsets and the 2hz+1 running z sums in
-// registers.  Other widths run one runtime instantiation of the same
+// registers.  One halfwidth 6-10 on every axis runs the wide instance
+// below.  Other widths run one runtime instantiation of the same
 // code: one output row per thread, taps and a ring of 2hz+1 xy-blurred
 // planes in shared memory, z summed when the ring holds z - hz .. z +
 // hz.
+//
+// Wide instance (blur3_kernel_wide<H>: one halfwidth H of 6-10 on every
+// axis, the blob ladder's LoG widths).  What bounds it on an H100:
+// instruction slots and their latency, not bytes: 3(2H+1) FMAs a voxel
+// (63 at H = 10) and the shared-memory reads that feed them, against 8
+// bytes moved (1.3-2.0 ms at 268M voxels against a 0.64 ms byte bound,
+// PERF.md §6).
+// A block of 8 warps owns a 32 x 32 tile and marches over the chunk of
+// planes ops/blur_cuda.wide_chunk picks (the whole depth at 268M), two
+// blocks an SM (128 registers a thread):
+// - four staged planes of (32 + 2H) x (32 + 2a) sources, a = H rounded
+//   up to 4, by 16-byte cp.async (4-byte where rows are not 16-byte
+//   aligned); a row is padded by 4 floats so that a warp's float4 reads
+//   of two rows fall on other banks;
+// - the x pass: 8 adjacent outputs a thread from a window of sources read
+//   as float4s into registers;
+// - the y pass: 4 output rows a thread from a window of 4 + 2H x-blurred
+//   rows in registers;
+// - z: each column's 2H+1 running sums in registers, moved down one
+//   register a step (renaming them by a switch on the step's phase was
+//   measured slower);
+// - the taps in shared memory, each axis in the walk's order, read as
+//   warp-uniform broadcasts, so that registers go to the sums.
+// Why the compiled instances stop at 5: they keep 3(2H+1) taps in
+// registers beside the 4(2H+1) sums, so past H = 8 they no longer fit a
+// thread's registers, and at 6-8 (163-189 registers) an SM held one
+// block of 8 warps and they ran 2.3-2.9x slower than the wide instance.
 //
 // Per-axis mode, for halfwidths whose fused tile does not fit in shared
 // memory (ops/blur_cuda.smem_plan returns None; the JAX package sends
@@ -294,7 +322,7 @@ int launch(const void* in, void* out, const void* taps, int hx, int hy,
 
 // taps: kz | ky | kx, each of odd length 2h+1; by (rows of threads)
 // and smem from ops/blur_cuda.smem_plan, which gives the compile-time
-// widths (one halfwidth 1-8 on every axis) 8 rows of threads.
+// widths (one halfwidth 1-5 on every axis) 8 rows of threads.
 extern "C" int visfd_blur3(const void* in, void* out, const void* taps,
                            int hx, int hy, int hz, int nz, int ny, int nx,
                            int by, int smem, void* stream) {
@@ -309,15 +337,273 @@ extern "C" int visfd_blur3(const void* in, void* out, const void* taps,
       VISFD_BLUR_CASE(3)
       VISFD_BLUR_CASE(4)
       VISFD_BLUR_CASE(5)
-      VISFD_BLUR_CASE(6)
-      VISFD_BLUR_CASE(7)
-      VISFD_BLUR_CASE(8)
       default:
         break;
     }
   }
 #undef VISFD_BLUR_CASE
   return launch<0>(in, out, taps, hx, hy, hz, nz, ny, nx, by, smem, s);
+}
+
+// ---------------------------------------------------------------------------
+// wide instance (see the header note)
+
+namespace {
+
+constexpr int kWStages = 4;  // staged input planes (kWStages - 1 in flight)
+constexpr int kWWarps = 8;   // a block's warps, kR output rows a thread
+constexpr int kWXR = 8;      // adjacent x outputs a thread in the x pass
+
+template <int H>
+struct WideTile {
+  static constexpr int W = 2 * H + 1;          // taps an axis
+  static constexpr int WP = (W + 3) / 4 * 4;   // ... padded to float4s
+  static constexpr int A = (H + 3) / 4 * 4;    // x halo staged (16 B)
+  static constexpr int OFF = A - H;  // column 0's first source, staged
+  static constexpr int SX = kBX + 2 * A;       // staged row
+  static constexpr int SXP = SX + 4;           // its stride: 4 mod 8 banks
+  static constexpr int NV = (OFF + kWXR + 2 * H + 3) / 4;  // float4s a window
+  static constexpr int XS = kBX + 4;           // x-blurred row stride
+  static constexpr int TY = kWWarps * kR;      // tile rows
+  static constexpr int RY = TY + 2 * H;        // staged rows
+  static constexpr int PLANE = RY * SXP;
+  static constexpr int NT = kWWarps * 32;
+  static constexpr int NC = SX / 4;            // 16-byte chunks a row
+  static constexpr int NE = (RY * NC + NT - 1) / NT;  // a thread's chunks
+  static constexpr int SMEM = 4 * (kWStages * PLANE + 2 * RY * XS + 3 * WP);
+  static_assert(kBX - kWXR + 4 * NV <= SX, "x window in the row");
+};
+
+template <int H>
+__global__ void __launch_bounds__(kWWarps * 32, 2)
+    blur3_kernel_wide(const float* __restrict__ in, float* __restrict__ out,
+                      const float* __restrict__ taps, int nz, int ny, int nx,
+                      int tz, int vec) {
+  using T = WideTile<H>;
+  constexpr int W = T::W;
+  extern __shared__ __align__(16) float sm[];
+  float* s_in = sm;                            // [kWStages][RY][SXP]
+  float* s_x = s_in + kWStages * T::PLANE;     // [2][RY][XS], x-blurred
+  float* s_k = s_x + 2 * T::RY * T::XS;        // kz | ky | kx, [3][WP]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int x0 = blockIdx.x * kBX, y0 = blockIdx.y * T::TY;
+  const int z0 = blockIdx.z * tz;
+
+  // each axis' taps in the order of the walk from the lowest source (tap
+  // d is k[2H - d]), zeros past W; read as warp-uniform float4s
+  for (int i = tid; i < 3 * T::WP; i += T::NT) {
+    const int a = i / T::WP, d = i - a * T::WP;
+    s_k[i] = d < W ? taps[a * W + 2 * H - d] : 0.0f;
+  }
+  const float* kz = s_k;
+  const float* ky = s_k + T::WP;
+  const float* kx = s_k + 2 * T::WP;
+
+  const int64_t nplane = static_cast<int64_t>(ny) * nx;
+  const int zo_end = min(z0 + tz, nz) - 1;            // last output plane
+  const int z_first = z0 - H, z_last = zo_end + H;    // input planes
+  const int zr_lo = max(z_first, 0);                  // those in the volume
+  const int zr_hi = min(z_last, nz - 1);
+
+  // vec: 16-byte chunks, this thread's offsets in the plane (-1: outside
+  // the volume, zeros; -2: past the footprint), the same every plane
+  int goff[T::NE];
+#pragma unroll
+  for (int j = 0; j < T::NE; ++j) {
+    const int e = tid + j * T::NT;
+    const int r = e / T::NC, c = e - r * T::NC;
+    const int gy = y0 - H + r, gx = x0 - T::A + 4 * c;
+    goff[j] = e >= T::RY * T::NC ? -2
+              : gy >= 0 && gy < ny && gx >= 0 && gx < nx ? gy * nx + gx
+                                                         : -1;
+  }
+
+  // one cp.async group per plane (empty beyond zr_hi), as blur3_kernel
+  auto stage = [&](int zi) {
+    if (zi <= zr_hi) {
+      const float* src = in + zi * nplane;
+      float* dst = s_in + ((zi - zr_lo) % kWStages) * T::PLANE;
+      if (vec) {
+#pragma unroll
+        for (int j = 0; j < T::NE; ++j) {
+          if (goff[j] == -2) continue;
+          const int e = tid + j * T::NT;
+          const int r = e / T::NC, c = e - r * T::NC;
+          visfd::cp_async16(dst + r * T::SXP + 4 * c,
+                            goff[j] >= 0 ? src + goff[j] : in, goff[j] >= 0);
+        }
+      } else {
+        for (int e = tid; e < T::RY * T::SX; e += T::NT) {
+          const int r = e / T::SX, c = e - r * T::SX;
+          const int gy = y0 - H + r, gx = x0 - T::A + c;
+          const bool ok = gy >= 0 && gy < ny && gx >= 0 && gx < nx;
+          visfd::cp_async4(dst + r * T::SXP + c,
+                           ok ? src + static_cast<int64_t>(gy) * nx + gx : in,
+                           ok);
+        }
+      }
+    }
+    visfd::cp_async_commit();
+  };
+
+#pragma unroll
+  for (int k = 0; k < kWStages - 1; ++k) stage(zr_lo + k);
+  float acc[kR][W];
+#pragma unroll
+  for (int q = 0; q < kR; ++q) {
+#pragma unroll
+    for (int j = 0; j < W; ++j) acc[q][j] = 0.0f;
+  }
+  const int x = x0 + lane, yb = y0 + warp * kR;
+  // step zx: x-blur plane zx and y-blur plane zx - 1 (x-blurred at the
+  // step before), one barrier per step
+  for (int zx = z_first; zx <= z_last + 1; ++zx) {
+    const bool x_real = zx >= zr_lo && zx <= zr_hi;  // uniform
+    if (x_real) visfd::cp_async_wait<kWStages - 2>();
+    // barrier: plane zx has landed (and the taps are in place); the rows
+    // x-blurred at the last step are complete; plane zx - 1's input
+    // buffer and plane zx - 2's rows are free
+    __syncthreads();
+    if (x_real) {
+      stage(zx + kWStages - 1);
+      const float* p = s_in + ((zx - zr_lo) % kWStages) * T::PLANE;
+      float* xr = s_x + ((zx - zr_lo) & 1) * T::RY * T::XS;
+      // kWXR adjacent outputs of a row a thread, from one window of
+      // sources in registers
+      for (int i = tid; i < T::RY * (kBX / kWXR); i += T::NT) {
+        const int r = i / (kBX / kWXR), c = kWXR * (i % (kBX / kWXR));
+        const float4* row =
+            reinterpret_cast<const float4*>(p + r * T::SXP + c);
+        float w[4 * T::NV], a[kWXR];
+#pragma unroll
+        for (int u = 0; u < T::NV; ++u) {
+          const float4 f = row[u];
+          w[4 * u] = f.x;
+          w[4 * u + 1] = f.y;
+          w[4 * u + 2] = f.z;
+          w[4 * u + 3] = f.w;
+        }
+#pragma unroll
+        for (int j = 0; j < kWXR; ++j) a[j] = 0.0f;
+#pragma unroll
+        for (int t4 = 0; t4 < W; t4 += 4) {
+          const float4 k4 = *reinterpret_cast<const float4*>(kx + t4);
+          const float kk[4] = {k4.x, k4.y, k4.z, k4.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (t4 + e < W) {
+#pragma unroll
+              for (int j = 0; j < kWXR; ++j) {
+                a[j] = fmaf(kk[e], w[T::OFF + j + t4 + e], a[j]);
+              }
+            }
+          }
+        }
+        float4* dst = reinterpret_cast<float4*>(xr + r * T::XS + c);
+#pragma unroll
+        for (int u = 0; u < kWXR / 4; ++u) {
+          dst[u] = make_float4(a[4 * u], a[4 * u + 1], a[4 * u + 2],
+                               a[4 * u + 3]);
+        }
+      }
+    }
+    const int zy = zx - 1;
+    if (zy < z_first) continue;  // uniform
+    // this thread's kR output rows read kR + 2H x-blurred rows
+    float v[kR], o[kR];
+#pragma unroll
+    for (int q = 0; q < kR; ++q) v[q] = 0.0f;
+    if (zy >= zr_lo && zy <= zr_hi) {  // uniform
+      const float* xr = s_x + ((zy - zr_lo) & 1) * T::RY * T::XS +
+                        warp * kR * T::XS + lane;
+      float w[kR + 2 * H];
+#pragma unroll
+      for (int t = 0; t < kR + 2 * H; ++t) w[t] = xr[t * T::XS];
+#pragma unroll
+      for (int t4 = 0; t4 < W; t4 += 4) {
+        const float4 k4 = *reinterpret_cast<const float4*>(ky + t4);
+        const float kk[4] = {k4.x, k4.y, k4.z, k4.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (t4 + e < W) {
+#pragma unroll
+            for (int q = 0; q < kR; ++q) {
+              v[q] = fmaf(kk[e], w[q + t4 + e], v[q]);
+            }
+          }
+        }
+      }
+    }
+    // acc[q][j] sums output plane zy - H + j: plane zy enters it with the
+    // z kernel's tap j (kz[2H - j] in the walk's order), so each output
+    // adds its inputs in ascending z; plane zy - H's sum is complete
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+#pragma unroll
+      for (int q = 0; q < kR; ++q) {
+        acc[q][j] = fmaf(kz[2 * H - j], v[q], acc[q][j]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kR; ++q) {
+      o[q] = acc[q][0];
+#pragma unroll
+      for (int j = 0; j + 1 < W; ++j) acc[q][j] = acc[q][j + 1];
+      acc[q][W - 1] = 0.0f;
+    }
+    const int zo = zy - H;
+    if (zo >= z0 && x < nx) {
+#pragma unroll
+      for (int q = 0; q < kR; ++q) {
+        if (yb + q < ny) {
+          out[zo * nplane + static_cast<int64_t>(yb + q) * nx + x] = o[q];
+        }
+      }
+    }
+  }
+}
+
+template <int H>
+int launch_wide(const void* in, void* out, const void* taps, int nz, int ny,
+                int nx, int tz, int smem, cudaStream_t stream) {
+  using T = WideTile<H>;
+  if (smem < T::SMEM || tz < 1) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = blur3_kernel_wide<H>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // 16-byte staging needs aligned rows; else 4-byte copies of the same
+  const int vec = (reinterpret_cast<uintptr_t>(in) & 15) == 0 && nx % 4 == 0;
+  const dim3 grid((nx + kBX - 1) / kBX, (ny + T::TY - 1) / T::TY,
+                  (nz + tz - 1) / tz);
+  kernel<<<grid, T::NT, T::SMEM, stream>>>(
+      static_cast<const float*>(in), static_cast<float*>(out),
+      static_cast<const float*>(taps), nz, ny, nx, tz, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The wide instance at halfwidth h on every axis (taps kz | ky | kx, each
+// of length 2h+1); tz output planes a block (ops/blur_cuda.wide_chunk),
+// smem at least the instance's (ops/blur_cuda.smem_plan).
+extern "C" int visfd_blur3_wide(const void* in, void* out, const void* taps,
+                                int h, int nz, int ny, int nx, int tz,
+                                int smem, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (h) {
+#define VISFD_WIDE_CASE(H) \
+  case H:                  \
+    return launch_wide<H>(in, out, taps, nz, ny, nx, tz, smem, s);
+    VISFD_WIDE_CASE(6)
+    VISFD_WIDE_CASE(7)
+    VISFD_WIDE_CASE(8)
+    VISFD_WIDE_CASE(9)
+    VISFD_WIDE_CASE(10)
+#undef VISFD_WIDE_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // ---------------------------------------------------------------------------

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from visfd_tpu_torch import _cuda_build as cb
+from visfd_tpu_torch.ops import blur_cuda
 from visfd_tpu_torch.ops import filters as F
 from visfd_tpu_torch.parallel import distributed as D
 from visfd_tpu_torch.parallel.blocks import iter_windows
@@ -383,6 +384,7 @@ def blob_dog(
     if m is not None and not isinstance(m, ShardedVolume):
         m = torch.as_tensor(m, dtype=torch.float32, device=x.device)
     sigmas = list(sigmas)
+    wide0 = blur_cuda.blur3.wide_launches
 
     min_crds, min_sig, min_sc = [], [], []
     max_crds, max_sig, max_sc = [], [], []
@@ -421,7 +423,9 @@ def blob_dog(
     maxima = pack(max_crds, max_sig, max_sc)
     if isinstance(report, Report):
         n = [report.counts.get(k, 0) for k in (KERNEL_LAUNCHES, TWIN_SLABS)]
-        report.line(f"{KERNEL_LAUNCHES}: {n[0]}; {TWIN_SLABS}: {n[1]}")
+        report.line(f"{KERNEL_LAUNCHES}: {n[0]}; {TWIN_SLABS}: {n[1]}; "
+                    f"{blur_cuda.WIDE_LAUNCHES} in the ladder: "
+                    f"{blur_cuda.blur3.wide_launches - wide0}")
 
     # final threshold filter (feature.hpp:362-417)
     if np.isfinite(minima_threshold) or np.isfinite(maxima_threshold) \
