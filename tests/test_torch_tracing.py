@@ -1,17 +1,19 @@
-"""The port's tracing (``utils/progress``): stages that repeat add up,
-every stage and span is a ``record_function`` annotation while a
-profiler records (and only then), the annotations nest as the blocks
-do, and the host<->device byte counters of two ``filter_mrc`` commands
-equal the sums worked out from their shapes.
+"""The port's tracing (``utils/progress``) and its counted copies
+(``utils/transfer``): stages that repeat add up, every stage and span is
+a ``record_function`` annotation while a profiler records (and only
+then), the annotations nest as the blocks do, ``to_device`` and
+``to_host`` count only what crosses, and the host<->device byte counters
+of ``filter_mrc`` commands equal the sums worked out from their shapes.
 
 On the CPU no byte crosses between host and device, so the counter
 cases count the copies with numpy arrays as the host side and tensors
-as the device side (``_on_host`` patched); the call sites and the
-arithmetic are those of a run on a card."""
+as the device side (``transfer._on_host`` patched); the call sites and
+the arithmetic are those of a run on a card."""
 
 import contextlib
 import io
 import json
+import warnings
 
 import numpy as np
 import pytest
@@ -19,9 +21,9 @@ import torch
 
 from visfd_tpu_torch.cli import filter_mrc as TFM
 from visfd_tpu_torch.io import mrc
-from visfd_tpu_torch.ops import blur_cuda
 from visfd_tpu_torch.parallel.gather import to_host_np
 from visfd_tpu_torch.utils import progress as P
+from visfd_tpu_torch.utils import transfer as X
 from visfd_tpu_torch.utils.phantom import blob_phantom, membrane_phantom
 from visfd_tpu_torch.utils.profiling import device_trace
 
@@ -57,6 +59,12 @@ COMMANDS = {
                         MEMBRANE_SHAPE,
                         ["read the mask", "bin the tomogram"],
                         [("mrc: header statistics", "write the tomogram")]),
+    "gauss": ("-in {d}/membrane.mrc -out {d}/out.mrc -w 1 -gauss 2",
+              MEMBRANE_SHAPE,
+              ["read the tomogram", "copy the volume to the device",
+               "filter gauss", "copy the result to the host",
+               "write the tomogram"],
+              [("mrc: header statistics", "write the tomogram")]),
 }
 
 
@@ -122,26 +130,86 @@ def test_counts_add_silently_and_record_count_sets():
                                    "0 to the host")
 
 
-@pytest.mark.parametrize("src,dst,want", [
-    (np.zeros(4, np.float32), torch.zeros(4), {}),        # host to host
-    (torch.zeros(4), np.zeros(4, np.float32), {}),
-    (torch.zeros(4, dtype=torch.float64), torch.zeros(4), {}),
-], ids=["numpy-to-cpu", "cpu-to-numpy", "cpu-to-cpu"])
-def test_count_copy_counts_only_host_device_crossings(src, dst, want):
+def _as_device(monkeypatch):
+    """Tensors as the device side, numpy arrays as the host side."""
+    monkeypatch.setattr(X, "_on_host",
+                        lambda a: not isinstance(a, torch.Tensor))
+
+
+# copies that stay on the host (the CPU is the host): nothing counted
+HOST_TO_HOST = {
+    "numpy-to-cpu": lambda rep: X.to_device(np.zeros(4, np.float32), "cpu",
+                                            rep),
+    "cpu-to-numpy": lambda rep: X.to_host(torch.zeros(4), rep),
+    "cpu-to-cpu": lambda rep: X.to_device(
+        torch.zeros(4, dtype=torch.float64), "cpu", rep, torch.float32),
+    "numpy-to-numpy": lambda rep: X.to_host(np.zeros(4, np.float32), rep,
+                                            np.float64),
+}
+
+
+@pytest.mark.parametrize("name", sorted(HOST_TO_HOST))
+def test_a_copy_on_the_host_counts_nothing(name):
     rep = P.Report(None)
-    P.count_copy(rep, src, dst)
-    P.count_copy(None, src, dst)       # no Report: nothing, no error
+    HOST_TO_HOST[name](rep)
+    HOST_TO_HOST[name](None)           # no Report: nothing, no error
+    assert rep.counts == {}
+
+
+# (a copy, with tensors as the device side, and the counts it makes)
+CROSSINGS = {
+    # the destination's bytes: 10 uint8 land as 10 float32
+    "up-as-float32": (lambda rep: X.to_device(
+        np.zeros(10, np.uint8), "cpu", rep, torch.float32),
+        {P.TO_DEVICE: 40}),
+    "down": (lambda rep: X.to_host(torch.zeros(3, dtype=torch.int64), rep),
+             {P.TO_HOST: 24}),
+    # a z slab into its place in a host tensor: the slab's bytes
+    "down-into-place": (lambda rep: X.to_host(
+        torch.zeros(2, 3), rep, out=torch.empty(4, 3)[:2]),
+        {P.TO_HOST: 24}),
+    "device-to-device": (lambda rep: X.to_device(torch.zeros(3), "cpu", rep),
+                         {}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CROSSINGS))
+def test_a_crossing_counts_the_destination_bytes(name, monkeypatch):
+    _as_device(monkeypatch)
+    copy, want = CROSSINGS[name]
+    rep = P.Report(None)
+    copy(rep)
     assert rep.counts == want
 
 
-def test_count_copy_counts_the_destination_bytes(monkeypatch):
-    monkeypatch.setattr(P, "_on_host",
-                        lambda a: not isinstance(a, torch.Tensor))
+@pytest.mark.parametrize("dtype", [None, torch.float64])
+def test_a_read_only_buffer_uploads_without_a_warning(dtype):
+    # an MRC volume is a read-only view of the file's bytes
+    raw = np.arange(24, dtype=np.float32).tobytes()
+    a = np.frombuffer(raw, np.float32).reshape(2, 3, 4)
+    assert not a.flags.writeable
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        t = X.to_device(a, "cpu", dtype=dtype)
+    t += 1                              # a fresh copy: the buffer stays
+    np.testing.assert_array_equal(a.ravel(), np.arange(24))
+    assert t.dtype == (dtype or torch.float32)
+
+
+@pytest.mark.parametrize("way", ["to_device", "to_host"])
+def test_dtype_converts(way, monkeypatch):
+    _as_device(monkeypatch)
     rep = P.Report(None)
-    P.count_copy(rep, np.zeros(10, np.uint8), torch.zeros(10))  # as float32
-    P.count_copy(rep, torch.zeros(3, dtype=torch.int64), np.zeros(3))
-    P.count_copy(rep, torch.zeros(3), torch.zeros(3))            # on device
-    assert rep.counts == {P.TO_DEVICE: 40, P.TO_HOST: 24}
+    if way == "to_device":
+        got = X.to_device(np.arange(3, dtype=np.int16), "cpu", rep,
+                          torch.float32)
+        assert got.dtype == torch.float32 and got.tolist() == [0, 1, 2]
+        assert rep.counts == {P.TO_DEVICE: 12}
+    else:
+        got = X.to_host(torch.arange(3, dtype=torch.int32), rep, np.float64)
+        assert got.dtype == np.float64 and got.tolist() == [0, 1, 2]
+        # the bytes that crossed, before the host converts them
+        assert rep.counts == {P.TO_HOST: 12}
 
 
 def test_no_profiler_enters_no_record_function(monkeypatch):
@@ -201,8 +269,7 @@ def test_trace_shows_every_stage_and_nests_the_spans(name, inputs,
 
 @pytest.mark.parametrize("name", sorted(COMMANDS))
 def test_byte_counters_equal_the_shapes_sums(name, inputs, monkeypatch):
-    monkeypatch.setattr(P, "_on_host",
-                        lambda a: not isinstance(a, torch.Tensor))
+    _as_device(monkeypatch)
     out = io.StringIO()
     rep = P.Report(out)
     _run(_argv(name, inputs), rep)
@@ -218,6 +285,10 @@ def test_byte_counters_equal_the_shapes_sums(name, inputs, monkeypatch):
         assert up == 4 * full
         kept = rep.counts["blob minima"] + rep.counts["blob maxima"]
         assert down > 0 and down % (2 * 8) == 0 and down >= 16 * kept
+    elif name == "gauss":
+        # the volume up; the filtered volume down in "copy the result to
+        # the host"
+        assert up == down == full
     else:
         # binning: the volume up, the binned volume down; the binned
         # volume up again, the score down
@@ -226,15 +297,13 @@ def test_byte_counters_equal_the_shapes_sums(name, inputs, monkeypatch):
         assert down == (per + 1) * binned
     assert out.getvalue().splitlines()[-1] == (
         f"host<->device bytes: {up} to the device, {down} to the host")
-    # every run counts its launches of the blur's wide instance: none on
-    # the CPU, where the blurs take the twin
-    assert rep.counts[blur_cuda.WIDE_LAUNCHES] == 0
+    for st in COMMANDS[name][2]:
+        assert st in rep.timings, (st, sorted(rep.timings))
 
 
 def test_shard_and_to_host_np_count_their_copies(monkeypatch):
     from visfd_tpu_torch.parallel.mesh import make_mesh, shard
-    monkeypatch.setattr(P, "_on_host",
-                        lambda a: not isinstance(a, torch.Tensor))
+    _as_device(monkeypatch)
     x = np.arange(8 * 4 * 4, dtype=np.float32).reshape(8, 4, 4)
     rep = P.Report(None)
     vol = shard(x, make_mesh(4, devices=["cpu"] * 4), report=rep)

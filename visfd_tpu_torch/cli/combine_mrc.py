@@ -21,6 +21,7 @@ import torch
 from visfd_tpu_torch.io import mrc
 from visfd_tpu_torch.ops import threshold as T
 from visfd_tpu_torch.parallel.gather import to_host_np
+from visfd_tpu_torch.utils.transfer import to_device
 
 
 def _parse_file_arg(arg):
@@ -102,8 +103,8 @@ def run(argv, device="cuda") -> int:
         print(f'Error: Unrecognized binary operation: "{pos[1][0]}"',
               file=sys.stderr)
         return 1
-    x1 = torch.as_tensor(img1.data, device=device)
-    x2 = torch.as_tensor(img2.data, device=device)
+    x1 = to_device(img1.data, device)
+    x2 = to_device(img2.data, device)
     if th1 is not None:
         x1 = _apply_th4(x1, th1)
     if th2 is not None:
@@ -114,7 +115,7 @@ def run(argv, device="cuda") -> int:
         mask_np = mrc.read_mrc(mask_name).data
         if use_mask_select:
             mask_np = np.where(mask_np == mask_select, 1.0, 0.0)
-        mask = torch.as_tensor(mask_np, device=device) == 0  # outside
+        mask = to_device(mask_np, device) == 0  # outside
 
     out = op(x1, x2)
     del x2

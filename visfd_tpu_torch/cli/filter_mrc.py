@@ -115,7 +115,6 @@ from visfd_tpu_torch.io.coords import (
     fmt_g, read_blob_coords_file, read_coordinates, write_blob_coords_file)
 from visfd_tpu_torch.io.pointcloud import write_oriented_pointcloud_ply
 from visfd_tpu_torch.linalg import sym3
-from visfd_tpu_torch.ops import blur_cuda
 from visfd_tpu_torch.ops import draw as D
 from visfd_tpu_torch.ops import filters as F
 from visfd_tpu_torch.ops import kernels as K
@@ -128,7 +127,7 @@ from visfd_tpu_torch.parallel.distributed import (
     allgather_concat, init_distributed)
 from visfd_tpu_torch.parallel.gather import is_writer, to_host_np
 from visfd_tpu_torch.parallel.mesh import (
-    Mesh, as_blocks, bmap, divides, make_mesh, shard, unwrap)
+    Mesh, ShardedVolume, as_blocks, bmap, divides, make_mesh, shard, unwrap)
 from visfd_tpu_torch.parallel.reduce import fraction_threshold
 from visfd_tpu_torch.parallel.sharded import (
     gradient_sharded, grid_mesh_of, hessian_principal_sharded,
@@ -137,7 +136,8 @@ from visfd_tpu_torch.segment.connect import label_connected
 from visfd_tpu_torch.segment.extrema import find_extrema, flat_to_xyz
 from visfd_tpu_torch.segment.propagate import propagate_watershed
 from visfd_tpu_torch.segment.watershed import watershed
-from visfd_tpu_torch.utils.progress import Report, count_copy, stage
+from visfd_tpu_torch.utils.progress import Report, stage
+from visfd_tpu_torch.utils.transfer import to_device, to_host
 
 def _join_cluster(mesh_devices) -> None:
     """``init_distributed`` for a -mesh run: gloo when the rank's
@@ -173,16 +173,8 @@ def _maybe_shard(arr, mesh: Optional[Mesh], device, rep=None):
     if arr is None:
         return None
     if mesh is None:
-        return _upload(arr, device, rep)
+        return to_device(arr, device, rep, torch.float32)
     return shard(arr, mesh, report=rep)
-
-
-def _upload(arr, device, rep, dtype=torch.float32) -> torch.Tensor:
-    """A fresh copy of ``arr`` on ``device`` (as ``dtype``; None keeps
-    the array's), counted in ``rep``."""
-    t = torch.tensor(arr, dtype=dtype, device=device)
-    count_copy(rep, arr, t)
-    return t
 
 
 def determine_voxel_width(s: Settings, img: mrc.MrcImage) -> np.ndarray:
@@ -224,10 +216,8 @@ def handle_binning(s: Settings, img, mask_img, w, device, rep: Report):
     vw = vw * b
 
     def binned(a):
-        t = R.bin_array3d(_upload(a, device, rep), new_zyx)
-        out = t.cpu().numpy()
-        count_copy(rep, t, out)
-        return out
+        return to_host(R.bin_array3d(to_device(a, device, rep, torch.float32),
+                                     new_zyx), rep)
 
     with stage("bin the tomogram", rep):
         img.data = binned(img.data)
@@ -459,9 +449,7 @@ def _load_progress(s: Settings, mesh, device, zyx, rep: Report):
     vote = np.stack(chans).astype(np.float32)
     if mesh is not None:
         return shard(vote, mesh, lead=1, report=rep)
-    t = torch.as_tensor(vote, device=device)
-    count_copy(rep, vote, t)
-    return t
+    return to_device(vote, device, rep)
 
 
 # voxels a slab of the plain full solver takes at once: its temporaries
@@ -699,8 +687,9 @@ def handle_extrema(s: Settings, x_np, mask_np, w, device,
     extrema found on ``device``; only their lists and the label image
     come back.  A list's file is written only when it is not empty."""
     with stage("copy the volume to the device", rep):
-        x = _upload(x_np, device, rep)
-        mask = None if mask_np is None else _upload(mask_np, device, rep)
+        x = to_device(x_np, device, rep, torch.float32)
+        mask = (None if mask_np is None
+                else to_device(mask_np, device, rep, torch.float32))
     with stage("find extrema", rep):
         res = find_extrema(
             x, mask=mask, find_minima=s.find_minima,
@@ -732,12 +721,12 @@ def handle_extrema(s: Settings, x_np, mask_np, w, device,
 
 
 def handle_watershed(s: Settings, x_np, mask_np, device, rep: Report,
-                     mesh: Optional[Mesh] = None) -> np.ndarray:
+                     mesh: Optional[Mesh] = None):
     """``HandleWatershed`` (``handlers.cpp:1279-1391``): the host Meyer
     flood (seeds found on the card), or with ``-watershed-device`` the
     label propagation on the card (over the mesh's blocks with
-    ``-mesh``).  The output image is built on the card and copied to the
-    host once, as float32."""
+    ``-mesh``).  Returns the float32 output image on the card (or its
+    blocks), which ``run`` copies to the host."""
     markers = None
     if s.watershed_markers_filename:
         markers = np.round(mrc.read_mrc(
@@ -765,17 +754,16 @@ def handle_watershed(s: Settings, x_np, mask_np, device, rep: Report,
                   "(label-level parity wherever intensities are distinct)",
                   file=sys.stderr)
         with stage("copy the volume to the device", rep):
-            x = _upload(x_np, device, rep)
+            x = to_device(x_np, device, rep, torch.float32)
             if mask_np is not None:
-                kw["mask"] = _upload(mask_np, device, rep, None)
+                kw["mask"] = to_device(mask_np, device, rep)
         res = watershed(x, report=rep, **kw)
         rep.record_path("watershed", "native")
     print(f"Number of basins found: {res.num_basins}", file=sys.stderr)
     rep.record_count("watershed basins", res.num_basins)
     labels = res.labels
     if isinstance(labels, np.ndarray):
-        host, labels = labels, torch.as_tensor(labels, device=device)
-        count_copy(rep, host, labels)
+        labels = to_device(labels, device, rep)
     undef_value = s.undefined_voxel_brightness
     if s.undefined_voxels_are_max:
         lab = as_blocks(labels)
@@ -791,9 +779,8 @@ def handle_watershed(s: Settings, x_np, mask_np, device, rep: Report,
         if m is not None:
             out = torch.where(m == 0, s.undefined_voxel_brightness, out)
         return out.to(torch.float32)
-    with stage("copy the result to the host", rep):
-        return to_host_np(bmap(image, labels) if mask is None
-                          else bmap(image, labels, mask), report=rep)
+    return (bmap(image, labels) if mask is None
+            else bmap(image, labels, mask))
 
 
 def handle_thresholds(s: Settings, out_np, mask_np, device,
@@ -812,8 +799,7 @@ def handle_thresholds(s: Settings, out_np, mask_np, device,
         print(f"ave={fmt_g(ave)}, stddev={fmt_g(std)}", file=sys.stderr)
         print(f"  Clipping intensities between [{fmt_g(a)}, {fmt_g(b)}]",
               file=sys.stderr)
-    x = torch.as_tensor(np.asarray(out_np, np.float32), device=device)
-    count_copy(rep, out_np, x)
+    x = to_device(out_np, device, rep, torch.float32)
     if s.use_rescale_multiply:
         out = x * s.out_rescale_multiply + s.out_rescale_offset
     elif s.use_gauss_thresholds:
@@ -832,10 +818,7 @@ def handle_thresholds(s: Settings, out_np, mask_np, device,
         out = T.threshold4(x, s.in_threshold_01_a, s.in_threshold_01_b,
                            s.in_threshold_10_a, s.in_threshold_10_b,
                            s.out_thresh_a_value, s.out_thresh_b_value)
-    out = out.to(torch.float32)
-    host = out.cpu().numpy()
-    count_copy(rep, out, host)
-    return host
+    return to_host(out.to(torch.float32), rep)
 
 
 def _mask_regions(s: Settings, mask_np, shape, w):
@@ -858,20 +841,18 @@ def _mask_regions(s: Settings, mask_np, shape, w):
 # ---------------------------------------------------------------------------
 # the convolution filters, morphology and the blob handlers
 # (the JAX CLI's, filter_mrc.py:157-245, 360-541): x and mask are tensors
-# on the card, or ShardedVolumes with -mesh; each returns a host array
+# on the card, or ShardedVolumes with -mesh; each returns its result
+# there, and run() brings it to the host
 
 
-def handle_gauss(s: Settings, x, mask,
-                rep: Optional[Report] = None) -> np.ndarray:
+def handle_gauss(s: Settings, x, mask):
     sig = s.width_a
     hw = [max(1, int(np.floor(si * _truncate_ratio(s)))) for si in sig]
-    return to_host_np(F.apply_gauss(
-        x, tuple(sig), mask=mask, truncate_halfwidth=hw,
-        normalize=s.normalize_near_boundaries), report=rep)
+    return F.apply_gauss(x, tuple(sig), mask=mask, truncate_halfwidth=hw,
+                         normalize=s.normalize_near_boundaries)
 
 
-def handle_ggauss(s: Settings, x, mask,
-                rep: Optional[Report] = None) -> np.ndarray:
+def handle_ggauss(s: Settings, x, mask):
     # generalized Gaussians convert the truncate threshold with their
     # own exponent: ratio = (-ln t)^(1/m), NOT the m=2 Gaussian formula
     # (filter3d_variants.hpp:87-110)
@@ -885,22 +866,20 @@ def handle_ggauss(s: Settings, x, mask,
                             normalize=s.normalize_near_boundaries)
     if mask is not None:
         out = bmap(lambda o, m: torch.where(m != 0, o, 0.0), out, mask)
-    return to_host_np(out, report=rep)
+    return out
 
 
-def handle_dogg(s: Settings, x, mask,
-                rep: Optional[Report] = None) -> np.ndarray:
+def handle_dogg(s: Settings, x, mask):
     """``HandleDogg`` (``handlers.cpp:265-293``): difference of
     generalized Gaussians honouring ``-exponents m n``; dense
     convolution, no edge normalisation."""
-    return to_host_np(F.apply_dogg(
+    return F.apply_dogg(
         x, tuple(s.width_a), tuple(s.width_b), s.m_exp, s.n_exp, mask=mask,
         truncate_ratio=s.filter_truncate_ratio,
-        truncate_threshold=s.filter_truncate_threshold), report=rep)
+        truncate_threshold=s.filter_truncate_threshold)
 
 
-def handle_dog(s: Settings, x, mask,
-                rep: Optional[Report] = None) -> np.ndarray:
+def handle_dog(s: Settings, x, mask):
     # each Gaussian with its own sigma-derived window
     # (filter3d_variants.hpp:544-590)
     tr = _truncate_ratio(s)
@@ -908,25 +887,20 @@ def handle_dog(s: Settings, x, mask,
     hwb = [max(1, int(np.floor(si * tr))) for si in s.width_b]
     ga = F.apply_gauss(x, tuple(s.width_a), mask=mask, truncate_halfwidth=hwa)
     gb = F.apply_gauss(x, tuple(s.width_b), mask=mask, truncate_halfwidth=hwb)
-    return to_host_np(bmap(torch.sub, ga, gb), report=rep)
+    return bmap(torch.sub, ga, gb)
 
 
-def handle_log(s: Settings, x, mask,
-                rep: Optional[Report] = None) -> np.ndarray:
-    return to_host_np(F.apply_log(
-        x, tuple(s.log_width), mask=mask,
-        delta_sigma_over_sigma=s.delta_sigma_over_sigma,
-        truncate_ratio=_truncate_ratio(s)), report=rep)
+def handle_log(s: Settings, x, mask):
+    return F.apply_log(x, tuple(s.log_width), mask=mask,
+                       delta_sigma_over_sigma=s.delta_sigma_over_sigma,
+                       truncate_ratio=_truncate_ratio(s))
 
 
-def handle_median(s: Settings, x, mask,
-                rep: Optional[Report] = None) -> np.ndarray:
-    return to_host_np(F.median_filter(x, s.median_radius, mask=mask),
-                      report=rep)
+def handle_median(s: Settings, x, mask):
+    return F.median_filter(x, s.median_radius, mask=mask)
 
 
-def handle_morphology(s: Settings, x, mask,
-                rep: Optional[Report] = None) -> np.ndarray:
+def handle_morphology(s: Settings, x, mask):
     fn = {
         S.DILATION: M.dilate_sphere,
         S.EROSION: M.erode_sphere,
@@ -935,14 +909,11 @@ def handle_morphology(s: Settings, x, mask,
         S.TOP_HAT_WHITE: M.white_top_hat_sphere,
         S.TOP_HAT_BLACK: M.black_top_hat_sphere,
     }[s.filter_type]
-    return to_host_np(fn(x, s.morphology_r, mask=mask,
-                         radius_max=s.morphology_rmax,
-                         bmax=s.morphology_bmax
-                         if s.morphology_rmax > 0 else 0.0), report=rep)
+    return fn(x, s.morphology_r, mask=mask, radius_max=s.morphology_rmax,
+              bmax=s.morphology_bmax if s.morphology_rmax > 0 else 0.0)
 
 
-def handle_fluct(s: Settings, x, mask,
-                rep: Optional[Report] = None) -> np.ndarray:
+def handle_fluct(s: Settings, x, mask):
     # threshold -> ratio conversion uses the template exponent:
     # ratio = (-ln t)^(1/m) (filter3d_variants.hpp:652-681)
     if s.filter_truncate_ratio > 0:
@@ -951,32 +922,30 @@ def handle_fluct(s: Settings, x, mask,
         tr = K.halfwidth_from_threshold(
             1.0, s.template_background_exponent,
             s.filter_truncate_threshold)
-    return to_host_np(F.local_fluctuations_by_radius(
+    return F.local_fluctuations_by_radius(
         x, tuple(s.template_background_radius), mask=mask,
         m_exp=s.template_background_exponent, truncate_ratio=tr,
-        normalize=s.normalize_near_boundaries), report=rep)
+        normalize=s.normalize_near_boundaries)
 
 
-def handle_template_gauss(s: Settings, x, mask,
-                rep: Optional[Report] = None) -> np.ndarray:
+def handle_template_gauss(s: Settings, x, mask):
     """``HandleTemplateGauss`` (``handlers_unsupported.cpp:787-1061``):
     the least-squares template amplitude image."""
     ratio = s.filter_truncate_ratio if s.filter_truncate_ratio > 0 else 2.5
-    return to_host_np(E.template_gen_gauss(
+    return E.template_gen_gauss(
         x, s.width_a, s.template_background_radius,
         m_exp=s.m_exp, n_exp=s.template_background_exponent,
         mask=mask, truncate_ratio=ratio,
-        normalize_near_boundaries=s.normalize_near_boundaries), report=rep)
+        normalize_near_boundaries=s.normalize_near_boundaries)
 
 
-def handle_doggxy(s: Settings, x, mask,
-                rep: Optional[Report] = None) -> np.ndarray:
+def handle_doggxy(s: Settings, x, mask):
     """``HandleDoggXY`` (``handlers_unsupported.cpp:19-160``); with
     -doggxy, width_a[2] is the z sigma."""
     ratio = s.filter_truncate_ratio if s.filter_truncate_ratio > 0 else 2.5
-    return to_host_np(E.dogg_xy(x, s.width_a[:2], s.width_b[:2],
-                                s.width_a[2], m_exp=s.m_exp, n_exp=s.n_exp,
-                                mask=mask, truncate_ratio=ratio), report=rep)
+    return E.dogg_xy(x, s.width_a[:2], s.width_b[:2], s.width_a[2],
+                     m_exp=s.m_exp, n_exp=s.n_exp, mask=mask,
+                     truncate_ratio=ratio)
 
 
 _FILTER_HANDLERS = {
@@ -1293,13 +1262,9 @@ def run(argv, device="cuda", report: Optional[Report] = None,
     put several blocks on one card or on the CPU); in a multi-process
     cluster, this rank's devices.  Whatever the path, the run's last
     line is the bytes it copied each way between host and device
-    (``Report.format_copies``), and the report counts the run's launches
-    of the blur's wide instance (``blur_cuda.WIDE_LAUNCHES``)."""
+    (``Report.format_copies``)."""
     rep = report if report is not None else Report(sys.stderr)
-    wide0 = blur_cuda.blur3.wide_launches
     code = _run(argv, torch.device(device), rep, mesh_devices)
-    rep.add_count(blur_cuda.WIDE_LAUNCHES,
-                  blur_cuda.blur3.wide_launches - wide0)
     rep.line(rep.format_copies())
     return code
 
@@ -1458,12 +1423,13 @@ def _run(argv, device: torch.device, rep: Report, mesh_devices) -> int:
                                        rep)
         else:
             with stage(f"filter {s.filter_type}", rep):
-                out = _FILTER_HANDLERS[s.filter_type](s, x, mask, rep)
+                out = _FILTER_HANDLERS[s.filter_type](s, x, mask)
         del x, mask
 
     if not s.out_file_name:
         return 0
-    if isinstance(out, torch.Tensor):
+    if isinstance(out, (torch.Tensor, ShardedVolume)):
+        # a collective in a cluster: every rank gathers the whole result
         with stage("copy the result to the host", rep):
             out = to_host_np(out, report=rep)
 

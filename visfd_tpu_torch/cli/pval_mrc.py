@@ -29,6 +29,7 @@ from visfd_tpu_torch.io import mrc
 from visfd_tpu_torch.ops import kernels as K
 from visfd_tpu_torch.ops.filters import apply_gauss
 from visfd_tpu_torch.ops.threshold import div_rounded
+from visfd_tpu_torch.utils.transfer import to_device, to_host
 
 
 def poisson_cdf_below(k, lam):
@@ -175,8 +176,8 @@ def run(argv, device="cuda") -> int:
         truncate_ratio = float(np.sqrt(-2 * np.log(truncate_threshold)))
 
     out_img = None
-    xd = torch.as_tensor(x, device=device)
-    maskd = None if mask is None else torch.as_tensor(mask, device=device)
+    xd = to_device(x, device)
+    maskd = None if mask is None else to_device(mask, device)
     for sigma_phys in sigmas:
         sigma = sigma_phys / w[0]
         hw = int(floor(sigma * truncate_ratio))
@@ -224,7 +225,7 @@ def run(argv, device="cuda") -> int:
               f"{eff_bin:.6g}")
 
     if out_name and len(sigmas) == 1 and out_img is not None:
-        mrc.write_mrc(out_name, out_img.cpu().numpy(),
+        mrc.write_mrc(out_name, to_host(out_img),
                       header=img.header if img is not None else None)
     return 0
 

@@ -20,6 +20,7 @@ import torch
 from visfd_tpu_torch.io import mrc
 from visfd_tpu_torch.io.coords import fmt_g
 from visfd_tpu_torch.ops import threshold as T
+from visfd_tpu_torch.utils.transfer import to_device, to_host
 
 
 def run(argv, device="cuda") -> int:
@@ -87,8 +88,7 @@ def run(argv, device="cuda") -> int:
             mask = np.where(mask == mask_select, 1.0, 0.0)
 
     def ramp(fn, *targs):
-        return fn(torch.as_tensor(img.data, device=device),
-                  *targs).cpu().numpy()
+        return to_host(fn(to_device(img.data, device), *targs))
 
     if not use_thresholds:
         x = img.data.astype(np.float64)

@@ -41,12 +41,12 @@ import numpy as np
 import torch
 
 from visfd_tpu_torch import _cuda_build as cb
-from visfd_tpu_torch.ops import blur_cuda
 from visfd_tpu_torch.ops import filters as F
 from visfd_tpu_torch.parallel import distributed as D
 from visfd_tpu_torch.parallel.blocks import iter_windows
 from visfd_tpu_torch.parallel.mesh import ShardedVolume
-from visfd_tpu_torch.utils.progress import Report, count_copy, span
+from visfd_tpu_torch.utils.progress import Report, span
+from visfd_tpu_torch.utils.transfer import to_device, to_host
 
 SORT_DECREASING = "decreasing"
 SORT_INCREASING = "increasing"
@@ -202,8 +202,7 @@ def _candidates(codes, centre, z0, y0, report=None):
     # the kind in the low 2 bits of the flat index; the score's bits
     packed = torch.stack([flat * 4 + codes.reshape(-1)[flat],
                           sc.view(torch.int32).to(torch.int64)])
-    host = packed.cpu().numpy()
-    count_copy(report, packed, host)
+    host = to_host(packed, report)
     kind = host[0] & 3
     zyx = np.stack(np.unravel_index(host[0] >> 2, codes.shape), axis=1)
     zyx[:, 0] += z0
@@ -352,7 +351,7 @@ def extremum_margins(x, sigmas, zyx, scale_index, mask=None,
                         gaps.append(torch.nan_to_num(
                             (nb - centre).abs(), nan=torch.inf))
         g = torch.stack(gaps).min(0).values / centre.abs()
-        out[sel] = g.cpu().numpy()
+        out[sel] = to_host(g)
     return out
 
 
@@ -382,9 +381,8 @@ def blob_dog(
         x = torch.as_tensor(x, dtype=torch.float32)
     m = mask
     if m is not None and not isinstance(m, ShardedVolume):
-        m = torch.as_tensor(m, dtype=torch.float32, device=x.device)
+        m = to_device(m, x.device, report, torch.float32)
     sigmas = list(sigmas)
-    wide0 = blur_cuda.blur3.wide_launches
 
     min_crds, min_sig, min_sc = [], [], []
     max_crds, max_sig, max_sc = [], [], []
@@ -423,9 +421,7 @@ def blob_dog(
     maxima = pack(max_crds, max_sig, max_sc)
     if isinstance(report, Report):
         n = [report.counts.get(k, 0) for k in (KERNEL_LAUNCHES, TWIN_SLABS)]
-        report.line(f"{KERNEL_LAUNCHES}: {n[0]}; {TWIN_SLABS}: {n[1]}; "
-                    f"{blur_cuda.WIDE_LAUNCHES} in the ladder: "
-                    f"{blur_cuda.blur3.wide_launches - wide0}")
+        report.line(f"{KERNEL_LAUNCHES}: {n[0]}; {TWIN_SLABS}: {n[1]}")
 
     # final threshold filter (feature.hpp:362-417)
     if np.isfinite(minima_threshold) or np.isfinite(maxima_threshold) \

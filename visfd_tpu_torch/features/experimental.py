@@ -35,6 +35,7 @@ from visfd_tpu_torch.ops import kernels as K
 from visfd_tpu_torch.ops.conv import conv1d_axis, dense_conv3d
 from visfd_tpu_torch.ops.filters import apply_gauss
 from visfd_tpu_torch.parallel.mesh import ShardedVolume, bmap
+from visfd_tpu_torch.utils.transfer import to_device
 
 # volume elements of the (points, selected voxels) squared-distance block
 # that distance_points_to_feature builds at a time
@@ -86,10 +87,10 @@ def distance_to_points(
     del dmin
     out.mul_(float(np.float32(voxel_width)))
     if mask is not None:
-        m = torch.as_tensor(np.asarray(mask) != 0, device=device)
+        m = to_device(np.asarray(mask) != 0, device)
         bg = (torch.zeros((), dtype=torch.float32, device=device)
               if background is None else
-              torch.as_tensor(background, dtype=torch.float32, device=device))
+              to_device(background, device, dtype=torch.float32))
         out = torch.where(m, out, bg)
     return out
 
@@ -111,10 +112,10 @@ def distance_points_to_feature(
     width are the JAX package's host expression.  Reference:
     ``handlers_unsupported.cpp:1470-1551``."""
     device = torch.device(device)
-    src = torch.as_tensor(source, device=device)
+    src = to_device(source, device)
     sel = (src >= select_min) & (src <= select_max)
     if mask is not None:
-        sel &= torch.as_tensor(mask, device=device) != 0
+        sel &= to_device(mask, device) != 0
     pts = np.asarray(points_ixyz, np.int64).reshape(-1, 3)
     vox = torch.nonzero(sel).flip(1)  # (M, 3) as (ix, iy, iz)
     del sel

@@ -70,9 +70,6 @@ _WIDE_WARPS = 8
 _WIDE_STAGES = 4
 _WIDE_BLOCKS_PER_SM = 2
 
-# the Report count of a filter_mrc run's launches of the wide instance
-WIDE_LAUNCHES = "blur3: wide-instance launches"
-
 
 def _runtime_plan(hx: int, hy: int, hz: int):
     """The runtime instance's (rows of threads, shared-memory bytes): one

@@ -18,13 +18,12 @@ rendering for ``-blob`` and ``-draw-spheres``.
 from __future__ import annotations
 
 import dataclasses
-import warnings
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from visfd_tpu_torch.utils.progress import count_copy
+from visfd_tpu_torch.utils.transfer import to_device, to_host
 
 # (sphere, voxel) pairs listed at a time by draw_spheres
 PAIRS_PER_CHUNK = 2 ** 25
@@ -157,8 +156,7 @@ def draw_spheres(
     (d_i / 2 - shell_i)^2 <= |j|^2 <= (d_i / 2)^2 (the inner bound only
     when both terms are positive), c_i truncated toward zero, inside the
     volume and the mask; where spheres overlap the later one wins.  A
-    ``Report`` counts the background's and the mask's copies to the
-    device."""
+    ``Report`` counts the background's and the mask's copies."""
     nz, ny, nx = dest_shape_zyx
     if device is None:
         device = (background.device if isinstance(background, torch.Tensor)
@@ -173,37 +171,25 @@ def draw_spheres(
     foreground = (np.ones(n) if foreground is None
                   else np.asarray(foreground, np.float64))
 
-    def on_device(a):
-        if isinstance(a, torch.Tensor):
-            t = a.to(device)
-        else:
-            # only read (the array may be a read-only file buffer)
-            with warnings.catch_warnings():
-                warnings.simplefilter("ignore", UserWarning)
-                t = torch.as_tensor(np.asarray(a)).to(device)
-        count_copy(report, a, t)
-        return t
-
-    valid = None if mask is None else (on_device(mask) != 0).reshape(-1)
+    valid = (None if mask is None
+             else (to_device(mask, device, report) != 0).reshape(-1))
     if background is None:
         dest = torch.zeros(dest_shape_zyx, dtype=torch.float32,
                            device=device)
     elif not background_normalize:
-        dest = on_device(background).to(torch.float32) * background_rescale
+        dest = (to_device(background, device, report).to(torch.float32)
+                * background_rescale)
     else:
         # the JAX package's float64 host statistics, for the same bits
-        bg = np.asarray(background.cpu() if isinstance(background,
-                                                        torch.Tensor)
-                        else background, np.float64)
+        bg = to_host(background, report, np.float64)
         sel = (np.ones(bg.shape, bool) if mask is None else
-               np.asarray(mask.cpu() if isinstance(mask, torch.Tensor)
-                          else mask) != 0)
+               to_host(mask, report) != 0)
         ave = bg[sel].mean() if sel.any() else 0.0
         std = bg[sel].std() if sel.any() else 0.0
         rms = np.sqrt(np.mean(np.square(foreground))) if n else 1.0
         if std > 0:
-            dest = on_device((((bg - ave) / std) * rms * background_rescale)
-                             .astype(np.float32))
+            dest = to_device((((bg - ave) / std) * rms * background_rescale)
+                             .astype(np.float32), device, report)
         else:
             dest = torch.zeros(dest_shape_zyx, dtype=torch.float32,
                                device=device)

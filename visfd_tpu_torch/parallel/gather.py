@@ -5,8 +5,8 @@ block of a ``ShardedVolume`` into its place in one host array; in a
 multi-process cluster it is a collective, as the JAX package's
 ``process_allgather(tiled=True)``: every rank receives the blocks of the
 others and returns the whole array, so every rank calls it, also where
-only rank 0 uses the result.  ``to_device`` is its counterpart on a
-device: the whole volume as one tensor there (the device watershed's
+only rank 0 uses the result.  ``gather_on_device`` is its counterpart
+on a device: the whole volume as one tensor there (the device watershed's
 pointer jumping reads every block's parents).  File writes are gated on
 ``is_writer`` (rank 0), so N processes running one command write one
 file.
@@ -21,19 +21,18 @@ import torch
 
 from visfd_tpu_torch.parallel import distributed as D
 from visfd_tpu_torch.parallel.mesh import ShardedVolume
-from visfd_tpu_torch.utils.progress import count_copy
+from visfd_tpu_torch.utils.transfer import to_host
 
 
 def to_host_np(vol, dtype=None, report=None) -> Optional[np.ndarray]:
-    """A tensor or a ShardedVolume as one numpy array on the host
-    (``None`` passes through); a ``Report`` counts the copies (each z
-    slab of a ShardedVolume)."""
+    """A tensor, a host array or a ShardedVolume as one numpy array on
+    the host (``None`` passes through), each copy through
+    ``utils/transfer.to_host`` (a ShardedVolume's z slabs each into
+    their place), counted in a ``Report``."""
     if vol is None:
         return None
     if not isinstance(vol, ShardedVolume):
-        out = vol.detach().cpu().numpy()
-        count_copy(report, vol, out)
-        return out if dtype is None else out.astype(dtype, copy=False)
+        return to_host(vol, report, dtype)
     if vol.halo != (0, 0):
         raise ValueError("to_host_np: the volume still carries halos")
     bz, _ = vol.block_shape
@@ -46,15 +45,13 @@ def to_host_np(vol, dtype=None, report=None) -> Optional[np.ndarray]:
         dev = parts[0].device
         slab = torch.cat([b.detach().to(dev, non_blocking=True)
                           for b in parts], dim=vol.lead + 1)
-        dst = out[pre + (slice(iz * bz, (iz + 1) * bz),)]
-        dst.copy_(slab)
-        count_copy(report, slab, dst)
+        to_host(slab, report, out=out[pre + (slice(iz * bz, (iz + 1) * bz),)])
     out = out.numpy()
     return out if dtype is None else out.astype(dtype, copy=False)
 
 
-def to_device(vol: ShardedVolume, device,
-              kind: str = "gather") -> torch.Tensor:
+def gather_on_device(vol: ShardedVolume, device,
+                     kind: str = "gather") -> torch.Tensor:
     """The whole volume of ``vol`` as one tensor on ``device``: each
     block copied into its place, another rank's received from it first
     (a collective in a cluster, its exchanges counted under ``kind``)."""

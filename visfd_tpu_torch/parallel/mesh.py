@@ -25,14 +25,13 @@ rank's blocks hold.  With one process every block is local.
 from __future__ import annotations
 
 import dataclasses
-import warnings
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from visfd_tpu_torch.parallel import distributed as D
-from visfd_tpu_torch.utils.progress import count_copy
+from visfd_tpu_torch.utils.transfer import to_device
 
 AXIS_NAMES = ("z", "y")
 
@@ -222,15 +221,9 @@ def shard(x, mesh: Mesh, lead: int = 0, report=None) -> ShardedVolume:
             continue
         slab = x[pre + (slice(iz * bz, (iz + 1) * bz),)]
         if isinstance(slab, np.ndarray):
-            # one host-to-device copy of the z slab (contiguous for a
-            # volume), split into its y blocks on the device; the host
-            # array is only read (it may be a read-only file buffer)
-            host = slab
-            with warnings.catch_warnings():
-                warnings.simplefilter("ignore", UserWarning)
-                slab = torch.from_numpy(np.ascontiguousarray(slab))
-            slab = slab.to(row[local[0]])
-            count_copy(report, host, slab)
+            # one host-to-device copy of the z slab, split into its y
+            # blocks on the device
+            slab = to_device(slab, row[local[0]], report)
         blocks.append([slab[pre + (slice(None),
                                    slice(iy * by, (iy + 1) * by))].to(
             dev, torch.float32, copy=True).contiguous()
@@ -257,8 +250,8 @@ def place(arr: np.ndarray, like: ShardedVolume) -> ShardedVolume:
     """A host (Z, Y, X) array split into the blocks of ``like``'s
     partition, on their devices, keeping its dtype."""
     bz, by = like.block_shape
-    return like.with_blocks(lambda iz, iy, b: torch.as_tensor(np.ascontiguousarray(
-        arr[iz * bz:(iz + 1) * bz, iy * by:(iy + 1) * by]), device=b.device))
+    return like.with_blocks(lambda iz, iy, b: to_device(
+        arr[iz * bz:(iz + 1) * bz, iy * by:(iy + 1) * by], b.device))
 
 
 def _block_of(vol: ShardedVolume, flat: np.ndarray):

@@ -74,6 +74,7 @@ from visfd_tpu_torch.parallel.mesh import ShardedVolume
 from visfd_tpu_torch.segment.extrema import (
     find_extrema, flat_to_xyz, neighbor_offsets)
 from visfd_tpu_torch.utils.progress import Report, stage
+from visfd_tpu_torch.utils.transfer import to_device, to_host
 
 SAME_DIRECTION = "same"
 OPPOSITE_DIRECTION = "opposite"
@@ -251,18 +252,13 @@ class ConnectResult:
     vector_standardized: Optional[np.ndarray] = None  # (Z, Y, X, 3)
 
 
-def _host(t, dtype=None):
-    a = to_host_np(t) if isinstance(t, (torch.Tensor, ShardedVolume)) \
-        else np.asarray(t)
-    return a if dtype is None else np.ascontiguousarray(a, dtype)
-
-
 def _channel_last(t) -> Optional[np.ndarray]:
     """A channel-major (C, Z, Y, X) field as a C-contiguous (Z, Y, X, C)
     float32 host array (None passes)."""
     if t is None:
         return None
-    return np.ascontiguousarray(_host(t).transpose(1, 2, 3, 0), np.float32)
+    return np.ascontiguousarray(to_host_np(t).transpose(1, 2, 3, 0),
+                                np.float32)
 
 
 def label_connected(
@@ -298,20 +294,18 @@ def label_connected(
     the whole volume (same labels).  ``want_dense_vectors``: build
     ``vector_standardized`` as a full (Z, Y, X, 3) host field (the PLY
     writer reads it); False skips it, labels and cluster statistics
-    unchanged.  ``report`` collects the stage spans."""
+    unchanged.  ``report`` collects the stage spans and counts the
+    copies of the inputs and the candidates."""
     rep = report if report is not None else Report(None)
     sharded = isinstance(saliency, ShardedVolume)
     sal = saliency if sharded else torch.as_tensor(saliency,
                                                    dtype=torch.float32)
     dev = sal.local_block.device if sharded else sal.device
 
-    def on_dev(t, dtype=torch.float32):
-        if t is None or isinstance(t, ShardedVolume):
-            return t
-        return torch.as_tensor(t, dtype=dtype, device=dev)
-
-    tensor, vector = on_dev(tensor), on_dev(vector)
-    mask_t = on_dev(mask)
+    tensor, vector, mask_t = (
+        t if t is None or isinstance(t, ShardedVolume)
+        else to_device(t, dev, rep, torch.float32)
+        for t in (tensor, vector, mask))
     nz, ny, nx = shape = tuple(sal.shape)
     for name, t, c in (("tensor", tensor, 6), ("vector", vector, 3)):
         if t is not None and tuple(t.shape) != (c,) + shape:
@@ -356,7 +350,7 @@ def label_connected(
     UNDEF = n_basins + 1
     want_vec_std = (vector is not None and standardize_vector_sign
                     and not consider_dot_product_sign)
-    valid = None if mask is None else _host(mask) != 0
+    valid = None if mask is None else to_host_np(mask, report=rep) != 0
     thr_n = (threshold_tensor_neighbor, threshold_vector_neighbor)
 
     if compact:
@@ -373,8 +367,9 @@ def label_connected(
         with stage("connect: native flood", rep):
             (labels, basin2cluster, cluster2basins, basin2polarity, vec_std,
              _) = _flood_native(
-                _host(sal, np.float32), valid,
-                np.zeros(shape, bool) if discard is None else _host(discard),
+                to_host_np(sal, report=rep), valid,
+                np.zeros(shape, bool) if discard is None
+                else to_host_np(discard, report=rep),
                 seed_locs, seed_scores, n_basins, offs, sign,
                 threshold_saliency, _channel_last(tensor), vec_cl, *thr_n,
                 consider_dot_product_sign,
@@ -406,7 +401,7 @@ def _flood_compact(sal, discard, mask_t, offs, sign, threshold_saliency,
                                        threshold_saliency, sign)
         with stage("connect: candidate copy", rep):
             zyx, sal_c, disc_c, tens_c, vec_c = (
-                None if p is None else p.cpu().numpy() for p in parts)
+                None if p is None else to_host(p, rep) for p in parts)
             del parts
     n_cand = len(zyx)
     rep.record_count("connect candidates", n_cand)
@@ -488,7 +483,7 @@ def _candidates_sharded(sal, discard, mask_t, tensor, vector,
             parts = compact_candidates(
                 b, blk(discard), blk(mask_t), blk(tensor), blk(vector),
                 threshold_saliency, sign)
-            host = [None if p is None else p.cpu().numpy() for p in parts]
+            host = [None if p is None else to_host(p, rep) for p in parts]
             host[0] = host[0] + np.array([iz * bz, iy * by, 0])
             lists.append(host)
             del parts

@@ -52,6 +52,7 @@ from visfd_tpu_torch.parallel.blocks import SENT, Geom, fixpoint, nb
 from visfd_tpu_torch.parallel.gather import to_host_np
 from visfd_tpu_torch.parallel.halo import halo1, with_ghosts
 from visfd_tpu_torch.parallel.mesh import ShardedVolume, as_blocks, bmap
+from visfd_tpu_torch.utils.transfer import to_host
 
 
 def neighbor_offsets(connectivity: int) -> Tuple[Tuple[int, int, int], ...]:
@@ -143,7 +144,7 @@ def _plateau_gather(x, valid, has_lt, has_gt, border, has_same, offsets):
         z2, y2, x2 = z2.clamp(0, nz - 1), y2.clamp(0, ny - 1), \
             x2.clamp(0, nx - 1)
         sames.append(inb & valid[z2, y2, x2] & (x[z2, y2, x2] == vals))
-    host = [t.cpu().numpy() for t in (
+    host = [to_host(t) for t in (
         torch.stack([z, y, xx], -1), vals, has_lt[z, y, xx],
         has_gt[z, y, xx], border[z, y, xx],
         torch.stack(sames, -1) if sames
@@ -353,8 +354,8 @@ def _singletons(x, valid, has_lt, has_gt, has_same, border, kind, t32_min,
     if not allow_borders:
         cand &= ~border
     z, y, xx = torch.nonzero(cand, as_tuple=True)
-    sc = x[z, y, xx].cpu().numpy()
-    return tuple(t.cpu().numpy().astype(np.int64) for t in (z, y, xx)) + (sc,)
+    sc = to_host(x[z, y, xx])
+    return tuple(to_host(t, dtype=np.int64) for t in (z, y, xx)) + (sc,)
 
 
 def _assemble(singles, plateaus, shape, find_minima, find_maxima,

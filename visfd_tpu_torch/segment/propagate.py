@@ -27,10 +27,10 @@ a plain tensor runs as the one block of a 1 x 1 grid.  So the mesh form
 on more blocks, and its labels equal the single-device ones.  Plateau
 labels jump along pointers inside a block (the JAX package's sharded
 scheme); the final root jump gathers the parents on the first block's
-device (``parallel.gather.to_device``).  Each ``while_loop`` of the JAX
-package is a Python loop (``parallel.blocks.fixpoint``) whose "changed"
-flag is read every few iterations: past its fixpoint an iteration
-changes nothing, and ``_minimax_device`` still stops at its cap of 8
+device (``parallel.gather.gather_on_device``).  Each ``while_loop`` of
+the JAX package is a Python loop (``parallel.blocks.fixpoint``) whose
+"changed" flag is read every few iterations: past its fixpoint an
+iteration changes nothing, and ``_minimax_device`` still stops at its cap of 8
 (nz + ny + nx) iterations exactly.  Flat indices are int32, as in the JAX package; a
 volume of 2^31 - 1 voxels or more is refused.
 
@@ -56,12 +56,13 @@ import torch
 from visfd_tpu_torch.parallel import distributed as D
 from visfd_tpu_torch.parallel.blocks import (
     INF, SENT, Geom, cells, fixpoint, nb)
-from visfd_tpu_torch.parallel.gather import to_device, to_host_np
+from visfd_tpu_torch.parallel.gather import gather_on_device, to_host_np
 from visfd_tpu_torch.parallel.halo import halo1, with_ghosts
 from visfd_tpu_torch.parallel.mesh import (
     ShardedVolume, as_blocks, bmap, gather_flat, place, scatter_flat, unwrap)
 from visfd_tpu_torch.segment.extrema import neighbor_offsets
 from visfd_tpu_torch.utils.progress import Report
+from visfd_tpu_torch.utils.transfer import to_device, to_host
 
 
 def _merged(vol: ShardedVolume, a: np.ndarray) -> np.ndarray:
@@ -86,7 +87,7 @@ def _inputs(x, mask):
         return xs, xs.with_blocks(lambda iz, iy, b: torch.ones_like(
             b, dtype=torch.bool))
     m = mask if isinstance(mask, ShardedVolume) else as_blocks(
-        torch.as_tensor(mask, device=xs.local_block.device))
+        to_device(mask, xs.local_block.device))
     return xs, bmap(lambda t: t != 0, m)
 
 
@@ -191,8 +192,8 @@ def _descend_device(x, mask, offsets, rep: Optional[Report] = None):
 
     # -- 4. pointer jumping to the roots, over the whole volume on the
     #       first local block's device (every rank's parents gathered) --
-    flat = to_device(parent, parent.local_block.device,
-                     kind="pointer jump").reshape(-1)
+    flat = gather_on_device(parent, parent.local_block.device,
+                            kind="pointer jump").reshape(-1)
     del parent
 
     def jump_step(p):
@@ -291,11 +292,10 @@ def meyer_boundaries(labels, r, x_signed, offs, valid=None,
         deps = [ab & nb(ap, off) & (nb(lp, off) != lb) for off in offs]
         contested = torch.stack(deps).any(0)
         z, y, xx = torch.nonzero(contested, as_tuple=True)
-        flat.append((((z + iz * g.bz) * ny + y + iy * g.by) * nx + xx)
-                    .cpu().numpy())
-        rf.append(rb[z, y, xx].cpu().numpy())
-        xf.append(xb[z, y, xx].cpu().numpy())
-        dep.append(torch.stack([d[z, y, xx] for d in deps], -1).cpu().numpy())
+        flat.append(to_host(((z + iz * g.bz) * ny + y + iy * g.by) * nx + xx))
+        rf.append(to_host(rb[z, y, xx]))
+        xf.append(to_host(xb[z, y, xx]))
+        dep.append(to_host(torch.stack([d[z, y, xx] for d in deps], -1)))
     del lab_g, asg_g
     out = bmap(torch.clone, lab)
     # the blocks' (and the ranks') lists, merged on the global index
@@ -374,7 +374,7 @@ def postprocess_basins(root, valid, x_signed, start_from_minima: bool,
     root in the sorted roots, on the device: no volume-sized table."""
     rs, vs, xs = as_blocks(root), as_blocks(valid), as_blocks(x_signed)
     roots = np.unique(_merged(rs, np.concatenate(
-        [torch.unique(r[v]).cpu().numpy().astype(np.int64)
+        [to_host(torch.unique(r[v]), dtype=np.int64)
          for _, _, r, v in cells(rs, vs)] + [np.zeros(0, np.int64)])))
     scores = (gather_flat(xs, roots) if len(roots)
               else np.zeros(0, np.float32))

@@ -36,6 +36,7 @@ from visfd_tpu_torch import native
 from visfd_tpu_torch.segment.extrema import (
     find_extrema, flat_to_xyz, neighbor_offsets)
 from visfd_tpu_torch.utils.progress import Report, stage
+from visfd_tpu_torch.utils.transfer import to_device, to_host
 
 WATERSHED_BOUNDARY = 0
 UNDEFINED = -1
@@ -63,13 +64,13 @@ def watershed(
 ) -> WatershedResult:
     """``source`` (and ``mask``): a tensor, whose seeds are found on its
     device, or a numpy array (on the CPU).  ``markers``: a host array.
-    ``report`` collects the spans of the seeds and the flood."""
+    ``report`` collects the spans of the seeds and the flood, and counts
+    the copies of the source and the mask."""
     rep = report if report is not None else Report(None)
     src = torch.as_tensor(source, dtype=torch.float32)
-    src_np = np.ascontiguousarray(src.cpu().numpy())
+    src_np = np.ascontiguousarray(to_host(src, rep))
     nz, ny, nx = src_np.shape
-    valid = None if mask is None else (
-        torch.as_tensor(mask).cpu().numpy() != 0)
+    valid = None if mask is None else to_host(mask, rep) != 0
     offs = neighbor_offsets(connectivity)
 
     sign = 1.0 if start_from_minima else -1.0
@@ -94,8 +95,8 @@ def watershed(
     else:
         with stage("watershed: seeds", rep):
             res = find_extrema(
-                src, mask=None if mask is None else torch.as_tensor(
-                    mask, device=src.device),
+                src, mask=None if mask is None else to_device(
+                    mask, src.device, rep),
                 find_minima=start_from_minima,
                 find_maxima=not start_from_minima,
                 minima_threshold=(halt_threshold if start_from_minima

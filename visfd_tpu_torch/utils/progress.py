@@ -24,7 +24,7 @@ from typing import Optional, TextIO
 import torch
 import torch.autograd.profiler as _autograd_profiler
 
-# the counters of host<->device copies (``count_copy``)
+# the counters of host<->device copies (``utils/transfer``)
 TO_DEVICE = "bytes to the device"
 TO_HOST = "bytes to the host"
 
@@ -73,20 +73,6 @@ class Report:
         268435456 to the host``."""
         return (f"host<->device bytes: {self.counts.get(TO_DEVICE, 0)} to "
                 f"the device, {self.counts.get(TO_HOST, 0)} to the host")
-
-
-def _on_host(a) -> bool:
-    return not isinstance(a, torch.Tensor) or a.device.type == "cpu"
-
-
-def count_copy(report, src, dst) -> None:
-    """Add the bytes of the copy of ``src`` into ``dst`` (tensors, or
-    numpy arrays, which are on the host) to ``report``'s count
-    ``TO_DEVICE`` or ``TO_HOST``: ``dst``'s bytes where exactly one of
-    the two is on the host, nothing otherwise, nor for a ``report`` that
-    is not a ``Report``."""
-    if isinstance(report, Report) and _on_host(src) != _on_host(dst):
-        report.add_count(TO_DEVICE if _on_host(src) else TO_HOST, dst.nbytes)
 
 
 @contextlib.contextmanager
