@@ -967,6 +967,10 @@ def _shell_thicknesses(s: Settings, diameters) -> np.ndarray:
     return th
 
 
+# the Report count of the rows the -blob lists hold
+BLOB_ROWS_WRITTEN = "blob lists: rows written"
+
+
 def handle_blob_detector(s: Settings, x, mask, x_np, mask_np, w, device,
                          rep: Report) -> torch.Tensor:
     """``HandleBlobDetector`` (``handlers.cpp:787-996``): the ladder on
@@ -1002,6 +1006,8 @@ def handle_blob_detector(s: Settings, x, mask, x_np, mask_np, w, device,
                 bl = B.sort_blobs(physical(bl), order, ascending_order=False)
                 write_blob_coords_file(fname, bl.crds, bl.diameters,
                                        bl.scores)
+            rep.record_count(BLOB_ROWS_WRITTEN,
+                             sum(len(bl) for _, bl, _ in lists))
 
     # annotate spheres over the input image (handlers.cpp:932-981)
     crds = np.concatenate([minima.crds, maxima.crds[::-1]])

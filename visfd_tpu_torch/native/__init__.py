@@ -1,17 +1,21 @@
-"""The native (C++) host floods, built at first use and loaded with ctypes.
+"""The native (C++) host floods and blob-list formatter, built at first
+use and loaded with ctypes.
 
 Port of ``visfd_tpu/native/__init__.py``.  The sequential
 priority-ordered floods (watershed, LabelConnected, blob NMS) stay on
-the host, as in the reference (``segmentation.hpp``, ``connect.hpp``):
-``visfd_native.cpp`` is compiled with the system ``g++ -O3`` into
-``visfd_tpu_torch/_build/`` under a name keyed by the hash of the source
-and the flags, so later processes reuse it.
+the host, as in the reference (``segmentation.hpp``, ``connect.hpp``),
+and so does the text of the blob lists (``format_rows_g6``, which
+``io/coords.write_blob_coords_file`` calls): ``visfd_native.cpp`` is
+compiled with the system ``g++ -O3`` into ``visfd_tpu_torch/_build/``
+under a name keyed by the hash of the source and the flags, so later
+processes reuse it.
 
 There is no fallback: ``load()`` raises when the compiler is missing or
 the build or the load fails, naming the compiler's error.  (The pure
-Python flood, ``segment.connect._flood_python``, is the twin the tests
-hold the native one against, never a substitute on the main path.)
-Nothing here runs when the module is imported.
+Python flood, ``segment.connect._flood_python``, and ``io/coords.fmt_g``
+are the twins the tests hold the native code against, never a
+substitute on the main path.)  Nothing here runs when the module is
+imported.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+
+import numpy as np
 
 _HERE = pathlib.Path(__file__).resolve().parent
 SRC = _HERE / "visfd_native.cpp"
@@ -46,7 +52,7 @@ def build() -> pathlib.Path:
     cxx = shutil.which("g++")
     if cxx is None:
         raise RuntimeError("visfd_tpu_torch.native: g++ not found on PATH; "
-                           "the connect flood is built from "
+                           "the floods and the list formatter are built from "
                            f"{SRC.name} at first use")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # build under a temporary name, then rename: processes that build at
@@ -93,6 +99,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         pf64, pf64, pf64, pi64, pi64,
         i64, i64, f64, f64, f64,
         pu8]
+    lib.visfd_format_rows_g6.restype = i64
+    lib.visfd_format_rows_g6.argtypes = [
+        pf64, i64, i64, ctypes.POINTER(ctypes.c_char), i64]
     return lib
 
 
@@ -115,3 +124,21 @@ def ptr(arr, ctype):
     if not arr.flags.c_contiguous:
         raise ValueError("native.ptr needs a C-contiguous array")
     return arr.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def format_rows_g6(rows, buf) -> int:
+    """Write the rows of the (n, k) C-contiguous float64 array ``rows``
+    into the uint8 array ``buf`` as text, each value as ``io/coords.fmt_g``
+    writes it, a space between values and a newline after each row;
+    returns the bytes written.  Raises when ``buf`` cannot hold them."""
+    if rows.dtype != np.float64 or rows.ndim != 2:
+        raise ValueError("native.format_rows_g6 needs (n, k) float64 rows")
+    if buf.dtype != np.uint8:
+        raise ValueError("native.format_rows_g6 needs a uint8 buffer")
+    n = load().visfd_format_rows_g6(
+        ptr(rows, ctypes.c_double), rows.shape[0], rows.shape[1],
+        ptr(buf, ctypes.c_char), buf.size)
+    if n < 0:
+        raise ValueError(f"native.format_rows_g6: {buf.size} bytes cannot "
+                         f"hold the text of {rows.shape[0]} rows")
+    return n

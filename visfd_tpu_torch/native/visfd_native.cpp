@@ -1,23 +1,30 @@
-// Native host runtime of visfd_tpu_torch (a copy of the JAX package's
-// visfd_tpu/native/visfd_native.cpp): the inherently sequential,
-// priority-ordered flood algorithms that stay on the host while the
-// dense voxel math runs on the GPU.
+// Native host runtime of visfd_tpu_torch (the floods are a copy of the
+// JAX package's visfd_tpu/native/visfd_native.cpp): the inherently
+// sequential, priority-ordered flood algorithms that stay on the host
+// while the dense voxel math runs on the GPU, and the text formatter of
+// the blob lists.
 //
-// These reproduce the reference's sequential C++ semantics exactly
+// The floods reproduce the reference's sequential C++ semantics exactly
 // (same priority ordering, same tie-breaking, same label states):
 //   * visfd_watershed_flood  ~ Watershed        (segmentation.hpp:240-468)
 //   * visfd_connect_flood    ~ LabelConnected   (connect.hpp:431-809)
 //   * visfd_nms              ~ DiscardOverlappingBlobs (feature.hpp:720-913)
+// and
+//   * visfd_format_rows_g6   writes float64 rows as text, each value as
+//     an ostream's default (printf's %.6g, Python's f"{v:.6g}")
 //
 // visfd_tpu_torch.segment.connect._flood_python is the plain (and
-// bit-identical) twin of the connect flood, which the tests hold it
-// against; visfd_tpu_torch.native builds this file at first use and
-// loads it through ctypes.
+// bit-identical) twin of the connect flood, and io/coords.fmt_g the
+// twin of the formatter, which the tests hold them against;
+// visfd_tpu_torch.native builds this file at first use and loads it
+// through ctypes.
 //
 // Build: g++ -O3 -std=c++17 -shared -fPIC visfd_native.cpp -o libvisfd_native.so
 
-#include <cstdint>
+#include <charconv>
 #include <cmath>
+#include <cstdint>
+#include <cstring>
 #include <queue>
 #include <unordered_map>
 #include <vector>
@@ -514,6 +521,36 @@ int64_t visfd_nms(
     }
   }
   return n_kept;
+}
+
+// The rows of an (n_rows, n_cols) C-contiguous float64 array as text:
+// each value as to_chars' general format at 6 significant digits, which
+// is printf's %.6g, a space between values and '\n' after each row.
+// A NaN prints "nan" whatever its sign bit, as Python's %g does
+// (to_chars prints "-nan"); +-inf and -0 already agree.
+// out: cap bytes, owned by the caller. Returns the bytes written, or -1
+// when they would not fit in cap.
+int64_t visfd_format_rows_g6(const double *v, int64_t n_rows,
+                             int64_t n_cols, char *out, int64_t cap) {
+  char *p = out;
+  char *const end = out + cap;
+  for (int64_t i = 0; i < n_rows; ++i)
+    for (int64_t j = 0; j < n_cols; ++j) {
+      const double x = v[i * n_cols + j];
+      if (std::isnan(x)) {
+        if (end - p < 3) return -1;
+        std::memcpy(p, "nan", 3);
+        p += 3;
+      } else {
+        const std::to_chars_result r =
+            std::to_chars(p, end, x, std::chars_format::general, 6);
+        if (r.ec != std::errc()) return -1;
+        p = r.ptr;
+      }
+      if (p == end) return -1;
+      *p++ = j + 1 < n_cols ? ' ' : '\n';
+    }
+  return p - out;
 }
 
 }  // extern "C"
