@@ -4,7 +4,10 @@ Everything that belongs to one configuration, traffic mix, metric,
 reference or kernel's roofline is a file of its own, found by name:
 
 * ``configs/<config>.json`` (the path is the ``file`` of its entry),
-* ``traffic/<traffic>.json``,
+* ``traffic/<traffic>.json``, whose ``phantom`` is of a kind that
+  ``traffic/phantoms.py`` makes itself (``BUILT_IN_KINDS``) or that
+  ``traffic/kinds/<kind>.py`` makes with ``make(phantom, shape_zyx,
+  voxel_width, seed, device) -> (volume, mask or None)``,
 * ``metrics/<metric>.py`` with ``read(ctx) -> float | None``,
 * ``references/<config>.py`` with ``check`` and ``control``,
 * ``roofline/<kernel>.py`` with ``KERNEL``, ``LAUNCHES`` and ``work``.
@@ -28,6 +31,7 @@ NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 TOP_KEYS = {"command", "paths", "run_seconds", "configs", "workloads",
             "end_to_end", "per_layer"}
+BUILT_IN_KINDS = ("membrane", "blob")
 
 
 def load_json(path: str) -> Dict:
@@ -41,6 +45,21 @@ def load_module(path: str, name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def kind_path(kind: str) -> str:
+    """The file of a phantom kind that is not built in."""
+    return os.path.join(HERE, "traffic", "kinds", f"{kind}.py")
+
+
+def phantom_kinds(phantom: Dict) -> List[str]:
+    """The kind of a traffic's phantom and of every phantom nested in
+    it (a value that is itself a dict with a ``kind``)."""
+    out = [phantom["kind"]]
+    for v in phantom.values():
+        if isinstance(v, dict) and "kind" in v:
+            out += phantom_kinds(v)
+    return out
 
 
 @dataclasses.dataclass
@@ -90,9 +109,12 @@ def cell(workload: str, root: str = ROOT,
     return Cell(workload, int(w["chips"]), config, traffic, e2e, per, root)
 
 
-def problems(man: Dict, root: str = ROOT) -> List[str]:
-    """What in the manifest breaks the benchmark's contract on names,
-    units, keys and files (an empty list when nothing does)."""
+def check(man: Optional[Dict] = None, root: str = ROOT) -> List[str]:
+    """What in the manifest (by default ``root``'s BENCHMARK.json) breaks
+    the benchmark's contract on names, units, keys and files (an empty
+    list when nothing does)."""
+    if man is None:
+        man = load_json(os.path.join(root, "BENCHMARK.json"))
     out = []
     if set(man) != TOP_KEYS:
         out.append(f"top-level keys {sorted(man)}")
@@ -136,9 +158,14 @@ def problems(man: Dict, root: str = ROOT) -> List[str]:
                     HERE, "references", f"{conf['reference']}.py")):
                 out.append(f"no reference for {c['name']}")
     for w in man["workloads"]:
-        if not os.path.isfile(os.path.join(HERE, "traffic",
-                                           f"{w['traffic']}.json")):
+        path = os.path.join(HERE, "traffic", f"{w['traffic']}.json")
+        if not os.path.isfile(path):
             out.append(f"no traffic file for {w['name']}")
+        else:
+            for kind in phantom_kinds(load_json(path)["phantom"]):
+                if kind not in BUILT_IN_KINDS and not os.path.isfile(
+                        kind_path(kind)):
+                    out.append(f"no phantom kind {kind} for {w['name']}")
         if w["chips"] not in (1, 4) or len(w["why"]) > 200:
             out.append(f"chips or why of {w['name']}")
     return out

@@ -12,10 +12,11 @@ import pytest
 from portbench.harness import manifest, mrcfile
 from portbench.traffic import phantoms
 
-# the cells at a size the CPU holds (the traffic's phantoms need a
-# z side above one blob spacing)
-TINY = {"membrane_tv.tomo268m": (16, 32, 32),
-        "blob_ribosome.tomo268m": (48, 64, 64)}
+# every cell of BENCHMARK.json at the size its traffic file gives the
+# CPU (``tiny_zyx``), so a cell added to the manifest joins the tests
+TINY = {w["name"]: tuple(manifest.cell(w["name"]).traffic["tiny_zyx"])
+        for w in manifest.load_json(os.path.join(
+            manifest.ROOT, "BENCHMARK.json"))["workloads"]}
 
 
 @pytest.fixture
@@ -40,11 +41,14 @@ def write_inputs(cell, shape, seed, directory):
 
 def run_tiny(workload, seed=2 ** 31 + 7, seconds=0.01, trace=False):
     """(exit code, result or None, stderr) of one CPU run of a tiny
-    cell through the harness."""
+    cell (a workload's name, or a ``Cell``) through the harness, at its
+    traffic's ``tiny_zyx``."""
     from portbench.harness.cell import run_cell
-    cell = manifest.cell(workload)
+    cell = (manifest.cell(workload) if isinstance(workload, str)
+            else workload)
     out, err = io.StringIO(), io.StringIO()
     rc = run_cell(cell, seed, seconds, trace, time.perf_counter(),
-                  device="cpu", shape=TINY[workload], out=out, err=err)
+                  device="cpu", shape=tuple(cell.traffic["tiny_zyx"]),
+                  out=out, err=err)
     lines = out.getvalue().strip().splitlines()
     return rc, (json.loads(lines[-1]) if lines else None), err.getvalue()

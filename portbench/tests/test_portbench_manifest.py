@@ -5,6 +5,7 @@ import json
 import math
 import os
 import re
+import shutil
 
 import pytest
 
@@ -15,7 +16,29 @@ WORKLOADS = [w["name"] for w in MAN["workloads"]]
 
 
 def test_manifest_has_no_problems():
-    assert manifest.problems(MAN) == []
+    assert manifest.check(MAN) == []
+    assert manifest.check() == []
+
+
+@pytest.mark.parametrize("phantom", [
+    {"kind": "no_such"},
+    {"kind": "smoothed", "sigma_A": 40.0, "of": {"kind": "no_such"}}])
+def test_check_names_a_missing_phantom_kind(phantom, tmp_path,
+                                            monkeypatch):
+    """A traffic whose phantom (or a phantom nested in it) is of a kind
+    neither built in nor a file under traffic/kinds/."""
+    here = tmp_path / "portbench"
+    shutil.copytree(manifest.HERE, here,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    (here / "traffic" / "odd.json").write_text(json.dumps(
+        {"name": "odd", "clients": 1, "tiny_zyx": [8, 8, 8],
+         "phantom": phantom}))
+    monkeypatch.setattr(manifest, "HERE", str(here))
+    man = json.loads(json.dumps(MAN))
+    man["workloads"].append(dict(man["workloads"][0], name="membrane_tv.odd",
+                                 traffic="odd"))
+    assert manifest.check(man) == [
+        "no phantom kind no_such for membrane_tv.odd"]
 
 
 def test_command_and_paths():
@@ -103,3 +126,4 @@ def test_traffic_files_are_data():
         path = os.path.join(manifest.HERE, "traffic", f"{w['traffic']}.json")
         t = json.load(open(path))
         assert t["clients"] == 1 and "kind" in t["phantom"]
+        assert len(t["tiny_zyx"]) == 3

@@ -5,6 +5,7 @@ command without a card, or without the program beside it, prints none
 either.  The test marked ``cuda`` runs a tiny cell on the card."""
 
 import ast
+import dataclasses
 import glob
 import os
 import shutil
@@ -24,6 +25,8 @@ from .conftest import TINY, run_tiny
 ROOT = manifest.ROOT
 YARDSTICK = (glob.glob(os.path.join(manifest.HERE, "references", "*.py"))
              + glob.glob(os.path.join(manifest.HERE, "roofline", "*.py"))
+             + glob.glob(os.path.join(manifest.HERE, "traffic", "kinds",
+                                      "*.py"))
              + [os.path.join(manifest.HERE, "traffic", "phantoms.py"),
                 os.path.join(manifest.HERE, "harness", "plain.py"),
                 os.path.join(manifest.HERE, "harness", "mrcfile.py")])
@@ -38,6 +41,20 @@ def test_sound_run_is_correct(workload):
     assert set(res["metrics"]) == {"voxels_per_s", "card_peak_gib",
                                    "host_peak_gib", "setup_s"}
     assert err.strip().splitlines()[-1].startswith("check ")
+
+
+def test_new_traffic_kind_runs_correct_with_no_edit():
+    """A cell the test makes from membrane_tv's config and a traffic of
+    the ``smoothed`` kind (a dict, in no file the harness knows) runs
+    through run_cell and is correct."""
+    base = manifest.cell("membrane_tv.tomo268m")
+    traffic = dict(base.traffic, name="smoothed_membrane", phantom={
+        "kind": "smoothed", "of": base.traffic["phantom"], "sigma_A": 40.0})
+    cell = dataclasses.replace(base, name="membrane_tv.smoothed",
+                               traffic=traffic)
+    rc, res, err = run_tiny(cell)
+    assert rc == 0 and res["correct"], err[-2000:]
+    assert res["attempted"] >= 1 and res["failed"] == 0
 
 
 def test_traced_run_reports_the_per_layer_metrics():
@@ -118,10 +135,14 @@ def test_yardstick_imports_nothing_of_the_program(path):
 
 
 def test_yardstick_loads_nothing_of_the_program():
+    kinds = "".join(
+        f", portbench.traffic.kinds.{os.path.basename(p)[:-3]}"
+        for p in glob.glob(os.path.join(manifest.HERE, "traffic", "kinds",
+                                        "[!_]*.py")))
     code = ("import sys; import portbench.references.membrane_tv, "
             "portbench.references.blob_ribosome, portbench.traffic.phantoms,"
-            " portbench.roofline; print(sorted({m.split('.')[0] for m in "
-            "sys.modules} & {'jax', 'jaxlib', 'flax', 'visfd_tpu', "
+            f" portbench.roofline{kinds}; print(sorted({{m.split('.')[0] "
+            "for m in sys.modules} & {'jax', 'jaxlib', 'flax', 'visfd_tpu', "
             "'visfd_tpu_torch'}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

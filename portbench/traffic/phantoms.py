@@ -8,17 +8,21 @@ shells) with the profile -exp(-(d / (thickness / 2))^2) in the distance
 d to the mid-surface; ``blob`` is dark solid spheres (-1) on a jittered
 grid, blurred at sigma 1, plus noise, with the slab mask that leaves out
 the top and bottom tenth of the planes.  The geometry comes from a
-numpy generator, the noise from a ``torch.Generator`` on the device."""
+numpy generator, the noise from a ``torch.Generator`` on the device.
+
+Any other kind is a file of its own, ``traffic/kinds/<kind>.py``, found
+by name: a later traffic adds a kind by adding that file."""
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from portbench.harness import plain
+from portbench.harness import manifest, plain
 
 
 def _seed64(seed: int) -> int:
@@ -103,7 +107,9 @@ def blob(shape_zyx: Tuple[int, int, int], seed: int, n_blobs: int,
 
 def make(traffic: Dict, shape_zyx, voxel_width: float, seed: int,
          device) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """(tomogram, mask or None) of one traffic file's ``phantom``."""
+    """(tomogram, mask or None) of one traffic file's ``phantom``: a
+    built-in kind here, any other by ``traffic/kinds/<kind>.py``'s
+    ``make(phantom, shape_zyx, voxel_width, seed, device)``."""
     p = traffic["phantom"]
     if p["kind"] == "membrane":
         vol, _ = membrane(shape_zyx, seed, p["thickness_A"] / voxel_width,
@@ -114,4 +120,8 @@ def make(traffic: Dict, shape_zyx, voxel_width: float, seed: int,
         vol, mask, _, _ = blob(shape_zyx, seed, p["n_blobs"], (lo, hi),
                                p["noise"], p["spacing"], device)
         return vol, mask
-    raise ValueError(f"unknown phantom kind {p['kind']!r}")
+    path = manifest.kind_path(p["kind"])
+    if not os.path.isfile(path):
+        raise ValueError(f"no phantom kind {p['kind']!r} ({path})")
+    kind = manifest.load_module(path, f"portbench_kind_{p['kind']}")
+    return kind.make(p, shape_zyx, voxel_width, seed, device)
